@@ -1,0 +1,83 @@
+"""The port imports without JAX and without a CUDA toolchain, and its
+kernel wrappers never fall back: CPU tensors take the plain twin, other
+devices raise."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import tinybvh_tpu_torch\n"
+        "import tinybvh_tpu_torch.convert, tinybvh_tpu_torch.tuning\n"
+        "import tinybvh_tpu_torch.traverse.packet2, tinybvh_tpu_torch._build\n"
+        "import tinybvh_tpu_torch.native, tinybvh_tpu_torch.io.loaders\n"
+        "import tinybvh_tpu_torch.core.intersect\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'tinybvh_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_build_module_imports_without_nvcc(monkeypatch):
+    """_build imports anywhere; building needs nvcc and says so."""
+    from tinybvh_tpu_torch import _build
+
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this host has nvcc")
+    monkeypatch.setattr(_build, "_kernels", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.kernels()
+
+
+def _cull_args(device):
+    G, mb, spad = 1, 1, 128
+    return (torch.ones(G, dtype=torch.int32, device=device),
+            torch.zeros((G, mb), dtype=torch.int32, device=device),
+            torch.zeros((8 * G, 128), dtype=torch.float32, device=device),
+            torch.zeros((3, spad), dtype=torch.float32, device=device),
+            torch.ones((3, spad), dtype=torch.float32, device=device),
+            100, 16, 18)
+
+
+def test_cpu_tensors_take_the_plain_twin():
+    """No build, no launch count: the plain twin ran. All-pass planes
+    (zero planes, zero thresholds) keep all 100 live segments."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    before = dict(packet2.LAUNCHES)
+    keys, cnt = packet2.cull(*_cull_args("cpu"))
+    assert packet2.LAUNCHES == before
+    assert cnt.tolist() == [0] * 8   # reach cap 0 drops everything
+    args = list(_cull_args("cpu"))
+    args[2][:, 34] = 1e30            # reach cap lane
+    keys, cnt = packet2.cull(*args)
+    assert cnt.tolist() == [100] * 8
+    assert keys.shape == (8, 16)
+    assert (keys & ((1 << 18) - 1)).tolist()[0] == list(range(16))
+
+
+def test_other_devices_raise():
+    """A tensor neither on the CPU nor on CUDA raises instead of moving
+    work anywhere."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    with pytest.raises(ValueError):
+        packet2.cull(*_cull_args("meta"))
+    args = list(_cull_args("cpu"))
+    args[0] = args[0].to("meta")
+    with pytest.raises(ValueError):
+        packet2.cull(*args)
