@@ -7,19 +7,40 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
   2. build: the CUDA kernels (csrc/*.cu, nvcc) and the native host
      builder (tinybvh_tpu/native/builder.c, cc), from the checkout;
-  3. kernels against their plain PyTorch twins on the card, at the
-     shapes of the main path: random_tris(65536, seed=0), 640x640
+  3. kernels A and B against their plain PyTorch twins on the card, at
+     the shapes of the main path: random_tris(65536, seed=0), 640x640
      camera rays in 16x16 tile order;
   4. main path through the API: BVH(tris, device="cuda").intersect(rays)
      and .is_occluded() for shadow segments from a point light to the
-     hit points; launch counts, zero residual overflow, and agreement
-     with the brute-force oracle on a 2048-ray subset (prim agreement
-     >= 0.999, hit-t checksum within 1%, as tiny_bvh_speedtest.cpp's
-     ValidateTraceResult gate);
+     hit points, with the wavefront retrace; launch counts, zero residual
+     overflow, and agreement with the brute-force oracle on a 2048-ray
+     subset (prim agreement >= 0.999, hit-t checksum within 1%, as
+     tiny_bvh_speedtest.cpp's ValidateTraceResult gate); the same calls
+     with the escalated packet retrace (16384 leaves) timed beside them;
   5. real size: the 4x4 grid of that scene (1,048,576 triangles), one
-     primary trace through intersect_packets2 with the grid16 budgets;
-then a JSON line of the kernels, and as the last line
-{"ok": true, "device": {...}}.
+     primary trace through intersect_packets2 with the grid16 budgets,
+     kernel G against its twin on that trace's cull descriptors (nbpad >
+     128), and the API's default path (primary and shadow, wavefront
+     retrace) gated by the oracles, with its peak device memory;
+  6. kernels C and G against their twins: C at the fused=False path's
+     shapes (T=1600 tiles, max_leaves=512, K4=2048 rows), G at the API's
+     cull descriptors (G=200 groups);
+  7. the cull-stage probes' path (benchmarks/cull_stage_probe.py): the
+     coarse tier through kernel G, the worklists, kernel A; equal to the
+     production cull's worklists, survivor counts and keys;
+  8. the fused=False path (kernel C) and sort=True against the fused path
+     on every ray, and the oracle on 2048 rays; each timed with and
+     without the wavefront retrace;
+  9. the wavefront retrace on the card: a 64-leaf first budget that
+     overflows most tiles, closest hit and the any-hit shadow trace,
+     gated by the oracles with zero residual overflow;
+ 10. the API off the packet path: 1000 rays and 4096 rays with a per-ray
+     t_max (wavefront engine, with its lockstep fallback), engine=
+     "lockstep", and 1000 rays on a sphere (the wavefront's own hits),
+     each against the oracle on every ray;
+then a JSON line of the four kernels (launches counted on each kernel's
+own path: A and B in phase 4, G in phase 7, C in phase 8), and as the
+last line {"ok": true, "device": {...}}.
 
 Precision: TF32 stays off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False); the kernels use no tensor cores.
@@ -35,8 +56,12 @@ import time
 
 import numpy as np
 
-CULL_REPLACES = "tinybvh_tpu/traverse/packet2.py:488"
-MT_REPLACES = "tinybvh_tpu/traverse/packet2.py:858"
+REPLACES = {"cull": "tinybvh_tpu/traverse/packet2.py:488",
+            "mt_fused": "tinybvh_tpu/traverse/packet2.py:858",
+            "mt_gathered": "tinybvh_tpu/traverse/packet2.py:756",
+            "cull_blocks": "tinybvh_tpu/traverse/packet2.py:455"}
+SOURCES = {"cull": "cull.cu", "mt_fused": "mt_fused.cu",
+           "mt_gathered": "mt_gathered.cu", "cull_blocks": "cull_blocks.cu"}
 ORACLE_RAYS = 2048
 
 
@@ -157,9 +182,35 @@ def oracle_check(hits_sub, rays_sub, tris, what):
     return agree, ratio
 
 
+def reset_launches():
+    from tinybvh_tpu_torch.traverse import packet2
+
+    for k in packet2.LAUNCHES:
+        packet2.LAUNCHES[k] = 0
+
+
+def read_launches(dev, names, what):
+    """The launch counts of `names` since the last reset; on the card each
+    must be > 0."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    sync(dev)
+    got = {k: packet2.LAUNCHES[k] for k in names}
+    if dev.type == "cuda" and min(got.values()) == 0:
+        raise AssertionError(f"{what} skipped a kernel: {got}")
+    return got
+
+
+def kernel_line(phase, name, r, gpu_line):
+    print(f"phase {phase} kernel {name}: {r['shape']} max_abs_err "
+          f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+          f"{r['plain_ms']:.4f} ms [{gpu_line}]", flush=True)
+
+
 def phase_kernels(bvh, rays, gpu_line, n_kernel=20, n_plain=3):
     """Kernel A and B against their plain twins on the arguments the API
-    path hands them (first cull pass and its MT resolve)."""
+    path hands them (first cull pass and its MT resolve). Returns the
+    results and the cull's arguments (kernel G reuses its descriptors)."""
     import torch
     from tinybvh_tpu_torch.traverse import packet2
 
@@ -209,10 +260,8 @@ def phase_kernels(bvh, rays, gpu_line, n_kernel=20, n_plain=3):
                            shape=f"T={b[0].shape[0]} k_cap={b[7]} "
                                  f"tri_blk={b[8]} rps={b[9]}")
     for name, r in out.items():
-        print(f"phase 3 kernel {name}: {r['shape']} max_abs_err "
-              f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
-              f"{r['plain_ms']:.4f} ms [{gpu_line}]", flush=True)
-    return out
+        kernel_line(3, name, r, gpu_line)
+    return out, a
 
 
 def setup_scene(tris, dev, W):
@@ -229,63 +278,117 @@ def setup_scene(tris, dev, W):
     return bvh, make_rays(o, d, device=dev), center, extent, build_s
 
 
-def phase_api(bvh, rays, center, extent, build_s, gpu_line):
-    """The main path through the public API; returns the launch counts of
-    exactly this run."""
+def shadow_rays(hits, rays, center, extent):
+    """Segments from a point light to the primary hit points (the far
+    image plane for misses); returns (light, points, rays)."""
     import torch
     from tinybvh_tpu_torch import make_rays
-    from tinybvh_tpu_torch.core.intersect import brute_force_any
-    from tinybvh_tpu_torch.traverse import packet2
 
-    dev = rays.o.device
-    R = rays.o.shape[0]
-
-    for k in packet2.LAUNCHES:
-        packet2.LAUNCHES[k] = 0
-    hits = bvh.intersect(rays)
     ht = torch.where(hits.prim >= 0, hits.t, torch.ones_like(hits.t))
     pts = rays.o + ht[:, None] * rays.d
     light = torch.as_tensor(
         (center + np.array([0, 2.0, 0]) * extent).astype(np.float32),
-        device=dev)
-    cutoff = 1.0 - 1e-3
-    srays = make_rays(light.expand_as(pts), pts - light)
-    occ = bvh.is_occluded(srays, cutoff)
+        device=rays.o.device)
+    return light, pts, make_rays(light.expand_as(pts), pts - light)
+
+
+def peak_gib(fn, dev):
+    """fn() and the peak device memory it allocated above what was
+    allocated before it, in GiB (0.0 off the card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return fn(), 0.0
     sync(dev)
-    launches = dict(packet2.LAUNCHES)
-    if dev.type == "cuda" and min(launches.values()) == 0:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    sync(dev)
+    return out, (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+
+def api_calls(bvh, rays, center, extent, cutoff):
+    """BVH.intersect(rays), then BVH.is_occluded of shadow segments to a
+    point light, each with its peak device memory. Returns (hits, occ,
+    (light, points, shadow rays), (primary GiB, shadow GiB))."""
+    hits, mem_p = peak_gib(lambda: bvh.intersect(rays), rays.o.device)
+    shadow = shadow_rays(hits, rays, center, extent)
+    occ, mem_s = peak_gib(lambda: bvh.is_occluded(shadow[2], cutoff),
+                          rays.o.device)
+    return hits, occ, shadow, (mem_p, mem_s)
+
+
+def api_gates(bvh, rays, hits, srays, occ, cutoff, what):
+    """The API's oracle gates on ORACLE_RAYS rays: (hit rate, prim
+    agreement, checksum ratio, shadow agreement)."""
+    from tinybvh_tpu_torch.core.intersect import brute_force_any
 
     hit_rate = float((hits.prim >= 0).float().mean())
     if not 0.0 < hit_rate < 1.0:
-        raise AssertionError(f"hit rate {hit_rate}")
-    idx = oracle_subset(R, dev)
+        raise AssertionError(f"{what}: hit rate {hit_rate}")
+    idx = oracle_subset(rays.o.shape[0], rays.o.device)
     agree, ratio = oracle_check(hits.take(idx), rays.take(idx), bvh.tris,
-                                "primary")
+                                f"{what} primary")
     occ_ref = brute_force_any(srays.take(idx), bvh.tris, cutoff)
     occ_agree = float((occ[idx] == occ_ref).float().mean())
     if occ_agree < 0.999:
-        raise AssertionError(f"shadow: oracle agreement {occ_agree}")
+        raise AssertionError(f"{what} shadow: oracle agreement {occ_agree}")
+    return hit_rate, agree, ratio, occ_agree
+
+
+def phase_api(bvh, rays, center, extent, build_s, gpu_line):
+    """The main path through the public API (wavefront retrace), then the
+    same two calls with the escalated packet retrace for comparison.
+    Returns the launch counts of exactly the API run and the shadow
+    segments."""
+    from tinybvh_tpu_torch.traverse import packet2
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    dev = rays.o.device
+    R = rays.o.shape[0]
+    cutoff = 1.0 - 1e-3
+
+    reset_launches()
+    hits, occ, shadow, mem = api_calls(bvh, rays, center, extent, cutoff)
+    launches = read_launches(dev, ("cull", "mt_fused"), "the API path")
+    srays = shadow[2]
+    hit_rate, agree, ratio, occ_agree = api_gates(bvh, rays, hits, srays,
+                                                  occ, cutoff, "api")
 
     prim_s = wall_s(lambda: bvh.intersect(rays), dev)
     shadow_s = wall_s(lambda: bvh.is_occluded(srays, cutoff), dev)
+    # the same calls with the escalated packet retrace instead
+    tun = get_tuning(device=dev)
+    pk = dict(max_leaves=tun.max_leaves, max_blocks=tun.max_blocks,
+              retrace="packet", retrace_ml=16384)
+    lo, hi = bvh.aabb
+    prim_pk = wall_s(lambda: packet2.intersect_packets2_sorted(
+        bvh.bvh8, bvh.packet_aux, rays, lo, hi, **pk), dev)
+    shadow_pk = wall_s(lambda: packet2.occluded_direction_sorted(
+        bvh.bvh8, bvh.packet_aux, srays, cutoff, **pk), dev)
     print(f"phase 4 api: {bvh.tris.shape[0]} tris, {R} rays, build {build_s:.3f}"
           f" s, hit rate {hit_rate:.4f}, primary {R / prim_s / 1e6:.3f} "
           f"MRays/s, shadow {R / shadow_s / 1e6:.3f} MRays/s (occluded "
-          f"{float(occ.float().mean()):.4f}), oracle prim-agree {agree:.5f}"
-          f" checksum {ratio:.6f} shadow-agree {occ_agree:.5f}, residual "
-          f"overflow 0, launches {launches} [{gpu_line}]", flush=True)
-    return launches
+          f"{float(occ.float().mean()):.4f}) with the wavefront retrace "
+          f"(cap {tun.wf_cap_factor}; peak device memory {mem[0]:.3f} / "
+          f"{mem[1]:.3f} GiB); packet retrace (16384 leaves): primary "
+          f"{R / prim_pk / 1e6:.3f} MRays/s, shadow {R / shadow_pk / 1e6:.3f}"
+          f" MRays/s; oracle prim-agree {agree:.5f} checksum {ratio:.6f} "
+          f"shadow-agree {occ_agree:.5f}, residual overflow 0, launches "
+          f"{launches} [{gpu_line}]", flush=True)
+    return launches, shadow
 
 
 def phase_grid(tris, dev, W, gpu_line):
-    """bench.py's grid16 section: one primary trace at its budgets."""
-    import torch
+    """bench.py's grid16 section: one primary trace at its budgets, kernel
+    G on its cull descriptors, then the API's default path (wavefront
+    retrace) on the same rays, primary and shadow."""
     from tinybvh_tpu_torch.traverse import packet2
 
-    bvh, rays, _, _, build_s = setup_scene(tris, dev, W)
+    bvh, rays, center, extent, build_s = setup_scene(tris, dev, W)
     aux = bvh.packet_aux
     R = rays.o.shape[0]
+    cutoff = 1.0 - 1e-3
 
     def primary():
         return packet2.intersect_packets2(
@@ -293,13 +396,14 @@ def phase_grid(tris, dev, W, gpu_line):
             retrace="packet", retrace_ml=8192, retrace_blocks=256,
             tri_blk=128)
 
-    for k in packet2.LAUNCHES:
-        packet2.LAUNCHES[k] = 0
-    hits, ovf = primary()
-    sync(dev)
-    launches = dict(packet2.LAUNCHES)
-    if dev.type == "cuda" and min(launches.values()) == 0:
-        raise AssertionError(f"grid trace skipped a kernel: {launches}")
+    rec, restore = capture(packet2, ("cull",))
+    reset_launches()
+    try:
+        hits, ovf = primary()
+    finally:
+        restore()
+    launches = read_launches(dev, ("cull", "mt_fused"), "the grid trace")
+    blocks = grid_cull_blocks(aux, rec["cull"][0][2])
     n_ovf = int(ovf.sum())
     if n_ovf:
         raise AssertionError(f"grid: {n_ovf} tiles with residual overflow")
@@ -310,11 +414,313 @@ def phase_grid(tris, dev, W, gpu_line):
     agree, ratio = oracle_check(hits.take(idx), rays.take(idx), bvh.tris,
                                 "grid primary")
     prim_s = wall_s(primary, dev)
+
+    hits, occ, shadow, mem = api_calls(bvh, rays, center, extent, cutoff)
+    _, a_agree, a_ratio, occ_agree = api_gates(bvh, rays, hits, shadow[2],
+                                               occ, cutoff, "grid api")
+    api_s = wall_s(lambda: bvh.intersect(rays), dev)
+    api_shadow_s = wall_s(lambda: bvh.is_occluded(shadow[2], cutoff), dev)
     print(f"phase 5 grid: {tris.shape[0]} tris, {R} rays, build "
           f"{build_s:.3f} s, hit rate {hit_rate:.4f}, primary "
           f"{R / prim_s / 1e6:.3f} MRays/s, oracle prim-agree {agree:.5f} "
-          f"checksum {ratio:.6f}, residual overflow 0, launches {launches} "
-          f"[{gpu_line}]", flush=True)
+          f"checksum {ratio:.6f}, residual overflow 0, launches {launches}, "
+          f"{blocks}; api (wavefront retrace): primary "
+          f"{R / api_s / 1e6:.3f} MRays/s, shadow "
+          f"{R / api_shadow_s / 1e6:.3f} MRays/s, peak device memory "
+          f"{mem[0]:.3f} / {mem[1]:.3f} GiB, oracle prim-agree "
+          f"{a_agree:.5f} checksum {a_ratio:.6f} shadow-agree "
+          f"{occ_agree:.5f} [{gpu_line}]", flush=True)
+
+
+def grid_cull_blocks(aux, desc):
+    """Kernel G against its twin on grid16's cull descriptors, where
+    nbpad > 128: each thread strides over several block ids, and the
+    n_blocks mask falls past the first 128."""
+    import torch
+    from tinybvh_tpu_torch.traverse import packet2
+
+    nbpad = aux.blk_lo.shape[1]
+    if nbpad <= packet2.LANES:
+        raise AssertionError(f"grid: nbpad {nbpad} does not exceed 128")
+    g = (desc, aux.blk_lo, aux.blk_hi, aux.n_blocks)
+    kern = (packet2._cull_blocks_cuda if desc.device.type == "cuda"
+            else packet2._cull_blocks_plain)
+    m_k = kern(*g)
+    if not torch.equal(m_k, packet2._cull_blocks_plain(*g)):
+        raise AssertionError("cull_blocks: grid16 mask differs from the "
+                             "plain twin")
+    return (f"kernel G equal to its twin at G={m_k.shape[0]} nbpad={nbpad} "
+            f"n_blocks={aux.n_blocks} ({int(m_k.sum())} blocks set)")
+
+
+UNFUSED = dict(max_leaves=512, max_blocks=256)   # K4 = 2048 rows
+
+
+def phase_kernels_cg(bvh, rays, cull_args, gpu_line, n_kernel=20,
+                     n_plain=3):
+    """Kernel C against its twin at the fused=False path's shapes, kernel
+    G at the API cull's descriptors. Both are held to bit equality."""
+    import torch
+    from tinybvh_tpu_torch.traverse import packet2
+
+    dev = rays.o.device
+    on_gpu = dev.type == "cuda"
+    out = {}
+    rec, restore = capture(packet2, ("mt_resolve",))
+    try:
+        packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                   retrace=False, fused=False, **UNFUSED)
+    finally:
+        restore()
+    c = rec["mt_resolve"][0]
+    kern = packet2._mt_cuda if on_gpu else packet2._mt_plain
+    t_k, i_k = kern(*c)
+    t_p, i_p = packet2._mt_plain(*c)
+    if not (torch.equal(i_k, i_p) and torch.equal(t_k, t_p)):
+        raise AssertionError("mt_gathered: t or row differs from the plain "
+                             "twin")
+    out["mt_gathered"] = dict(
+        max_abs_err=float((t_k - t_p).abs().max()),
+        ms=time_ms(lambda: kern(*c), dev, n_kernel),
+        plain_ms=time_ms(lambda: packet2._mt_plain(*c), dev, n_plain),
+        shape=f"T={c[2].shape[0]} K4={c[2].shape[1]}")
+
+    aux = bvh.packet_aux
+    g = (cull_args[2], aux.blk_lo, aux.blk_hi, aux.n_blocks)
+    kern = packet2._cull_blocks_cuda if on_gpu else packet2._cull_blocks_plain
+    m_k = kern(*g)
+    m_p = packet2._cull_blocks_plain(*g)
+    if not torch.equal(m_k, m_p):
+        raise AssertionError("cull_blocks: mask differs from the plain twin")
+    out["cull_blocks"] = dict(
+        max_abs_err=int((m_k - m_p).abs().max()),
+        ms=time_ms(lambda: kern(*g), dev, n_kernel),
+        plain_ms=time_ms(lambda: packet2._cull_blocks_plain(*g), dev,
+                         n_plain),
+        shape=f"G={m_k.shape[0]} nbpad={m_k.shape[2]} "
+              f"n_blocks={aux.n_blocks}")
+    for name, r in out.items():
+        kernel_line(6, name, r, gpu_line)
+    return out
+
+
+def phase_cull_stage(bvh, cull_args, gpu_line):
+    """The cull-stage probes' path (benchmarks/cull_stage_probe.py:61-99):
+    coarse tier through kernel G, worklist compaction, fine tier through
+    kernel A, on the API cull's descriptors. It must reproduce the
+    production cull (inline coarse tier) exactly. Returns the launch
+    counts of this path."""
+    import torch
+    from tinybvh_tpu_torch.traverse import packet2
+
+    nblk0, wl0, desc, llo, lhi, n_segs, k_cap, leaf_bits = cull_args
+    dev = desc.device
+    aux = bvh.packet_aux
+    max_blocks = wl0.shape[1]
+
+    def stage():
+        mask = packet2.cull_blocks(desc, aux.blk_lo, aux.blk_hi,
+                                   aux.n_blocks)
+        nblk, wl, _ = packet2._worklists(mask[:, 0] > 0, max_blocks)
+        return nblk, wl, packet2.cull(nblk, wl, desc, llo, lhi, n_segs,
+                                      k_cap, leaf_bits)
+
+    reset_launches()
+    nblk, wl, (keys, cnt) = stage()
+    launches = read_launches(dev, ("cull_blocks", "cull"), "the cull stage")
+    keys0, cnt0 = packet2.cull(*cull_args)
+    if not (torch.equal(nblk, nblk0) and torch.equal(wl, wl0)
+            and torch.equal(cnt, cnt0) and torch.equal(keys, keys0)):
+        raise AssertionError("cull stage: kernel G's worklists or the keys "
+                             "differ from the production cull's")
+    stage_ms = time_ms(stage, dev, 20)
+    print(f"phase 7 cull stage: G={wl.shape[0]} groups, mean live blocks "
+          f"{float(nblk.float().mean()):.2f}, worklists and {int(cnt.sum())} "
+          f"survivors equal to the production cull, {stage_ms:.4f} ms per "
+          f"stage, launches {launches} [{gpu_line}]", flush=True)
+    return launches
+
+
+def same_hits(h, ref, what):
+    """prim equal on every ray, t within 1e-4 where both hit."""
+    import torch
+
+    n_diff = int((h.prim != ref.prim).sum())
+    if n_diff:
+        raise AssertionError(f"{what}: prim differs on {n_diff} rays")
+    m = ref.prim >= 0
+    if not torch.allclose(h.t[m], ref.t[m], rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"{what}: t outside 1e-4")
+    return float((h.t[m] - ref.t[m]).abs().max())
+
+
+def phase_unfused(bvh, rays, gpu_line):
+    """fused=False (kernel C) and sort=True against the fused path, rays
+    in tile order, each with the wavefront retrace; each timed with and
+    without that retrace. Returns the launch counts of the fused=False
+    run."""
+    from tinybvh_tpu_torch.traverse import packet2
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    dev = rays.o.device
+    R = rays.o.shape[0]
+    kw = dict(UNFUSED, retrace=True,
+              wf_cap_factor=get_tuning(device=dev).wf_cap_factor)
+
+    def run(**extra):
+        h, ov = packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                           **kw, **extra)
+        if int(ov.sum()):
+            raise AssertionError(f"{extra}: {int(ov.sum())} tiles with "
+                                 "residual overflow")
+        return h
+
+    reset_launches()
+    hu = run(fused=False)
+    launches = read_launches(dev, ("cull", "mt_gathered"),
+                             "the fused=False path")
+    hf = run()
+    hs = run(sort=True)
+    err_u = same_hits(hu, hf, "fused=False vs fused")
+    err_s = same_hits(hs, hf, "sort=True vs fused")
+    idx = oracle_subset(R, dev)
+    agree, ratio = oracle_check(hu.take(idx), rays.take(idx), bvh.tris,
+                                "fused=False")
+
+    def first_pass(**extra):
+        return packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                          retrace=False, **UNFUSED, **extra)
+
+    # the first pass alone compares the resolves; the wavefront retrace
+    # adds the same work to each mode
+    first, full = [], []
+    for k, x in (("fused=False", dict(fused=False)), ("fused", {}),
+                 ("sort=True", dict(sort=True))):
+        r_first = R / wall_s(lambda: first_pass(**x), dev) / 1e6
+        r_full = R / wall_s(lambda: run(**x), dev) / 1e6
+        first.append(f"{k} {r_first:.3f}")
+        full.append(f"{k} {r_full:.3f}")
+    first, full = ", ".join(first), ", ".join(full)
+    print(f"phase 8 unfused: {R} rays in tile order, max_leaves "
+          f"{UNFUSED['max_leaves']}, MRays/s of the first pass: {first}; "
+          f"with the wavefront retrace: {full}; prim equal on every ray (t "
+          f"max diff {err_u:.3g} unfused, {err_s:.3g} sorted), oracle "
+          f"prim-agree {agree:.5f} checksum {ratio:.6f}, residual overflow "
+          f"0, launches {launches} [{gpu_line}]", flush=True)
+    return launches
+
+
+RETRACE = dict(max_leaves=64, max_blocks=256, retrace=True,
+               wf_cap_factor=64)
+
+
+def phase_retrace(bvh, rays, shadow, gpu_line):
+    """The wavefront retrace on the card: a first budget of 64 leaves
+    overflows most tiles; closest hit and the any-hit shadow trace."""
+    from tinybvh_tpu_torch.core.intersect import brute_force_any
+    from tinybvh_tpu_torch.traverse import packet2
+
+    dev = rays.o.device
+    R = rays.o.shape[0]
+    light, pts, srays = shadow
+    cutoff = 1.0 - 1e-3
+
+    def primary():
+        return packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                          return_counts=True, **RETRACE)
+
+    def occluded():
+        return packet2.is_occluded_packets2_sorted(
+            bvh.bvh8, bvh.packet_aux, light, pts, cutoff, **RETRACE)
+
+    reset_launches()
+    hits, ovf, counts = primary()
+    occ, sovf = occluded()
+    launches = read_launches(dev, ("cull", "mt_fused"), "the retrace phase")
+    n_first = int((counts > RETRACE["max_leaves"] // 4).sum())
+    if n_first < counts.shape[0] // 2:
+        raise AssertionError(f"only {n_first} tiles overflowed the first "
+                             "budget")
+    if int(ovf.sum()) or int(sovf.sum()):
+        raise AssertionError(f"residual overflow: {int(ovf.sum())} tiles, "
+                             f"{int(sovf.sum())} shadow rays")
+    idx = oracle_subset(R, dev)
+    agree, ratio = oracle_check(hits.take(idx), rays.take(idx), bvh.tris,
+                                "wavefront retrace")
+    occ_ref = brute_force_any(srays.take(idx), bvh.tris, cutoff)
+    occ_agree = float((occ[idx] == occ_ref).float().mean())
+    if occ_agree < 0.999:
+        raise AssertionError(f"retrace shadow: oracle agreement {occ_agree}")
+    prim_s = wall_s(primary, dev)
+    shadow_s = wall_s(occluded, dev)
+    print(f"phase 9 retrace: max_leaves {RETRACE['max_leaves']}, "
+          f"{n_first} of {counts.shape[0]} tiles overflow the first pass, "
+          f"wavefront cap {RETRACE['wf_cap_factor']}: primary "
+          f"{R / prim_s / 1e6:.3f} MRays/s, shadow {R / shadow_s / 1e6:.3f} "
+          f"MRays/s; oracle prim-agree {agree:.5f} checksum {ratio:.6f} "
+          f"shadow-agree {occ_agree:.5f}, residual overflow 0, launches "
+          f"{launches} [{gpu_line}]", flush=True)
+
+
+def phase_off_packets(bvh, rays, extent, gpu_line):
+    """The API on batches the packet path does not take, each against the
+    oracle on every ray. Each case names the engine whose hits came back:
+    on random_tris the wavefront's frontier needs ~40 pairs per camera
+    ray, past the API's cap of 8, so those calls end in the lockstep
+    fallback; the sphere's fits, and must come back from the wavefront."""
+    import torch
+    from tinybvh_tpu_torch import BVH
+    from tinybvh_tpu_torch.core.intersect import brute_force_closest
+    from tinybvh_tpu_torch.core.vecmath import BVH_FAR
+    from tinybvh_tpu_torch.io.loaders import sphere_tris
+    from tinybvh_tpu_torch.traverse import wide
+
+    dev = rays.o.device
+    R = rays.o.shape[0]
+    r1000 = rays.take(torch.arange(0, R, R // 1000, device=dev)[:1000])
+    r4096 = rays.take(torch.arange(0, R, R // 4096, device=dev)[:4096])
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    tm = (torch.rand(4096, generator=gen) * 1.5 * extent + 0.5 * extent).to(
+        device=dev, dtype=torch.float32)
+    sphere, s_rays, _, _, _ = setup_scene(sphere_tris(128, 256), dev, 640)
+    Rs = s_rays.o.shape[0]
+    s1000 = s_rays.take(torch.arange(0, Rs, Rs // 1000, device=dev)[:1000])
+    cases = (("1000 rays", bvh, r1000, BVH_FAR, "auto"),
+             ("4096 rays, per-ray t_max", bvh, r4096, tm, "auto"),
+             ("1000 rays, engine=lockstep", bvh, r1000, BVH_FAR, "lockstep"),
+             ("sphere, 1000 rays", sphere, s1000, BVH_FAR, "auto"))
+    fallbacks = []
+    real = wide.intersect_bvh8
+
+    def counted(*args, **kw):
+        fallbacks.append(1)
+        return real(*args, **kw)
+
+    parts = []
+    for what, b, r, t_max, engine in cases:
+        eng = b._engine(r, t_max, engine)
+        if eng != ("lockstep" if engine == "lockstep" else "wavefront"):
+            raise AssertionError(f"{what}: dispatched to {eng}")
+        fallbacks.clear()
+        wide.intersect_bvh8 = counted
+        try:
+            h = b.intersect(r, t_max, engine=engine)
+        finally:
+            wide.intersect_bvh8 = real
+        if eng == "wavefront" and fallbacks:
+            eng = "wavefront, frontier overflow at cap 8 -> lockstep"
+        if b is sphere and fallbacks:
+            raise AssertionError(f"{what}: the wavefront overflowed")
+        ref = brute_force_closest(r, b.tris, t_max)
+        err = same_hits(h, ref, what)
+        hit = float((h.prim >= 0).float().mean())
+        if not 0.0 < hit < 1.0:
+            raise AssertionError(f"{what}: hit rate {hit}")
+        ms = wall_s(lambda: b.intersect(r, t_max, engine=engine), dev) * 1e3
+        parts.append(f"{what} ({eng}): {ms:.2f} ms, hit rate {hit:.4f}, "
+                     f"t max diff {err:.3g}")
+    print(f"phase 10 off-packet api: {'; '.join(parts)}; prim equal to the "
+          f"oracle on every ray [{gpu_line}]", flush=True)
 
 
 def main():
@@ -353,23 +759,26 @@ def main():
 
     tris = random_tris(65536, seed=0)
     scene = setup_scene(tris, dev, 640)
-    kern = phase_kernels(scene[0], scene[1], gpu_line)
-    launches = phase_api(*scene, gpu_line)
+    bvh, rays, _, extent, _ = scene
+    kern, cull_args = phase_kernels(bvh, rays, gpu_line)
+    launches, shadow = phase_api(*scene, gpu_line)
     phase_grid(grid_scene(tris, 4, 4), dev, 640, gpu_line)
+    kern.update(phase_kernels_cg(bvh, rays, cull_args, gpu_line))
+    launches.update(cull_blocks=phase_cull_stage(
+        bvh, cull_args, gpu_line)["cull_blocks"])
+    launches.update(mt_gathered=phase_unfused(bvh, rays,
+                                              gpu_line)["mt_gathered"])
+    phase_retrace(bvh, rays, shadow, gpu_line)
+    phase_off_packets(bvh, rays, extent, gpu_line)
 
     print(json.dumps({"kernels": [
-        {"name": "cull", "route": "cuda",
-         "source": "tinybvh_tpu_torch/csrc/cull.cu",
-         "replaces": CULL_REPLACES, "launches": launches["cull"],
-         "max_abs_err": kern["cull"]["max_abs_err"],
-         "ms": kern["cull"]["ms"], "plain_ms": kern["cull"]["plain_ms"]},
-        {"name": "mt_fused", "route": "cuda",
-         "source": "tinybvh_tpu_torch/csrc/mt_fused.cu",
-         "replaces": MT_REPLACES, "launches": launches["mt_fused"],
-         "max_abs_err": kern["mt_fused"]["max_abs_err"],
-         "ms": kern["mt_fused"]["ms"],
-         "plain_ms": kern["mt_fused"]["plain_ms"]},
-    ]}), flush=True)
+        {"name": name, "route": "cuda",
+         "source": f"tinybvh_tpu_torch/csrc/{SOURCES[name]}",
+         "replaces": REPLACES[name], "launches": launches[name],
+         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
+         "plain_ms": kern[name]["plain_ms"]}
+        for name in ("cull", "mt_fused", "mt_gathered", "cull_blocks")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,9 @@
 brute-force oracle (the kernels' plain twins run on CPU tensors).
 
 Tolerances as tests/test_packet2.py:141-160: prim equal, t within
-rtol = atol = 1e-4, u and v within 1e-3.
+rtol = atol = 1e-4, u and v within 1e-3. On the CPU "auto" takes the
+wavefront engine (as the JAX API does off the TPU), so the packet path is
+asked for by name.
 """
 
 import numpy as np
@@ -10,8 +12,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 import tinybvh_tpu as tb  # noqa: E402
 import tinybvh_tpu_torch as tt  # noqa: E402
+from tinybvh_tpu_torch.config import use_config  # noqa: E402
 from tinybvh_tpu_torch.core.intersect import (  # noqa: E402
     brute_force_any, brute_force_closest,
 )
@@ -53,7 +58,7 @@ def _camera(T=16, seed=4):
 def test_intersect_matches_jax_and_oracle(scene):
     tris, pb, jb = scene
     o, d = _camera()
-    h = pb.intersect(tt.make_rays(o, d))
+    h = pb.intersect(tt.make_rays(o, d), engine="packets")
     jh = jb.intersect(tb.make_rays(o, d), engine="packets")
     ref = brute_force_closest(tt.make_rays(o, d), pb.tris)
     hp = h.prim.numpy()
@@ -85,7 +90,8 @@ def test_is_occluded_matches_jax_and_oracle(scene, shared_origin):
             -2, 12, pts.shape).astype(np.float32)
     seg_d = (pts - src).astype(np.float32)
     cutoff = 1.0 - 1e-3
-    occ = pb.is_occluded(tt.make_rays(src, seg_d), cutoff).numpy()
+    occ = pb.is_occluded(tt.make_rays(src, seg_d), cutoff,
+                         engine="packets").numpy()
     jocc = np.asarray(jb.is_occluded(tb.make_rays(src, seg_d), cutoff))
     want = brute_force_any(tt.make_rays(src, seg_d), pb.tris, cutoff).numpy()
     np.testing.assert_array_equal(occ, want)
@@ -108,24 +114,34 @@ def test_from_vertex_buffer_equals_direct(scene):
 
 
 @pytest.mark.parametrize("call", [
-    "engine_wavefront", "engine_rayloop", "small_batch", "odd_batch",
-    "per_ray_tmax", "refit", "builder_lbvh", "layout_bvh2", "tlas"])
+    "wavefront_watertight", "engine_rayloop", "small_batch_baldwin",
+    "engine_lockstep2", "occluded_watertight", "refit", "builder_lbvh",
+    "layout_bvh2", "tlas"])
 def test_unported_paths_raise(scene, call):
+    """What the API still lacks raises NotImplementedError. Small, ragged
+    and per-ray-t_max batches go to the wavefront engine, and the engine
+    itself is ported: those cases ask for what it still lacks (the
+    watertight and Baldwin-Weber leaf tests, ROADMAP queue 1 item 2) or
+    for the BVH2 lockstep engine (slice 6)."""
     tris, pb, _ = scene
     o, d = _camera()
     rays = tt.make_rays(o, d)
     with pytest.raises(NotImplementedError):
-        if call == "engine_wavefront":
-            pb.intersect(rays, engine="wavefront")
+        if call == "wavefront_watertight":
+            with use_config(tri_test="watertight"):
+                pb.intersect(rays, engine="wavefront")
         elif call == "engine_rayloop":
             pb.is_occluded(rays, 1.0, engine="rayloop")
-        elif call == "small_batch":
-            pb.intersect(tt.make_rays(o[:2048], d[:2048]))
-        elif call == "odd_batch":
+        elif call == "small_batch_baldwin":
+            with use_config(tri_test="baldwin"):
+                pb.intersect(tt.make_rays(o[:2048], d[:2048]))
+        elif call == "engine_lockstep2":
             pb.intersect(tt.make_rays(np.concatenate([o, o[:100]]),
-                                      np.concatenate([d, d[:100]])))
-        elif call == "per_ray_tmax":
-            pb.intersect(rays, t_max=torch.full((o.shape[0],), 5.0))
+                                      np.concatenate([d, d[:100]])),
+                         engine="lockstep2")
+        elif call == "occluded_watertight":
+            with use_config(tri_test="watertight"):
+                pb.is_occluded(rays, torch.full((o.shape[0],), 5.0))
         elif call == "refit":
             pb.refit()
         elif call == "builder_lbvh":
@@ -162,3 +178,126 @@ def test_loaders_match_jax(tmp_path):
     path.write_bytes(np.int32(10).tobytes() + rec.tobytes())
     np.testing.assert_array_equal(pl.load_bin(str(path)), tris)
     np.testing.assert_array_equal(jl.load_bin(str(path)), tris)
+
+
+def _assert_hits(h, ref):
+    """prim equal on every ray; t, u, v within the parity tolerances."""
+    hp = h.prim.numpy()
+    rp = np.asarray(ref.prim.numpy() if hasattr(ref.prim, "numpy")
+                    else ref.prim)
+    np.testing.assert_array_equal(hp, rp)
+    m = hp >= 0
+    for name, tol in (("t", 1e-4), ("u", 1e-3), ("v", 1e-3)):
+        want = getattr(ref, name)
+        want = want.numpy() if isinstance(want, torch.Tensor) else np.asarray(
+            want)
+        np.testing.assert_allclose(getattr(h, name).numpy()[m], want[m],
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n", [100, 1000, 2148])
+def test_small_and_ragged_batches(scene, n):
+    """Batches under 4096 rays or not a multiple of 256 take the wavefront
+    engine: the same hits as the JAX API and the oracle."""
+    _, pb, jb = scene
+    o, d = _camera()
+    o, d = o[:n], d[:n]
+    h = pb.intersect(tt.make_rays(o, d))
+    _assert_hits(h, jb.intersect(tb.make_rays(o, d)))
+    _assert_hits(h, brute_force_closest(tt.make_rays(o, d), pb.tris))
+    assert 0 < (h.prim.numpy() >= 0).mean() < 1
+
+
+def test_per_ray_t_max(scene):
+    """A per-ray t_max (even on a packet-shaped batch, and with
+    engine="packets", as in JAX) goes to the wavefront engine."""
+    _, pb, jb = scene
+    o, d = _camera()
+    rays = tt.make_rays(o, d)
+    full = pb.intersect(rays, engine="wavefront")
+    tm = np.random.default_rng(8).uniform(5.0, 15.0, o.shape[0]).astype(
+        np.float32)
+    for engine in ("auto", "packets"):
+        h = pb.intersect(rays, t_max=torch.from_numpy(tm), engine=engine)
+        keep = full.t.numpy() < tm
+        np.testing.assert_array_equal(h.prim.numpy(),
+                                      np.where(keep, full.prim.numpy(), -1))
+        _assert_hits(h, jb.intersect(tb.make_rays(o, d),
+                                     t_max=jnp.asarray(tm), engine=engine))
+    assert 0 < keep.mean() < 1
+    occ = pb.is_occluded(rays, torch.from_numpy(tm))
+    want = brute_force_any(rays, pb.tris, torch.from_numpy(tm))
+    np.testing.assert_array_equal(occ.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("engine", ["auto", "wavefront", "lockstep"])
+def test_engines_match_jax_and_oracle(scene, engine):
+    """The wavefront and lockstep engines (and "auto", which is the
+    wavefront on the CPU) against the JAX API's same engine and the
+    oracles, for hits and shadow segments."""
+    _, pb, jb = scene
+    o, d = _camera(T=4)
+    rays = tt.make_rays(o, d)
+    h = pb.intersect(rays, engine=engine)
+    _assert_hits(h, jb.intersect(tb.make_rays(o, d), engine=engine))
+    _assert_hits(h, brute_force_closest(rays, pb.tris))
+    pts = o + np.where(h.prim.numpy() >= 0, h.t.numpy(), 20.0)[:, None] * d
+    src = np.broadcast_to(np.array([5.0, 14.0, 5.0], np.float32),
+                          pts.shape).copy()
+    seg = (pts - src).astype(np.float32)
+    occ = pb.is_occluded(tt.make_rays(src, seg), 0.999, engine=engine)
+    want = brute_force_any(tt.make_rays(src, seg), pb.tris, 0.999)
+    np.testing.assert_array_equal(occ.numpy(), want.numpy())
+    jocc = jb.is_occluded(tb.make_rays(src, seg), 0.999, engine=engine)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    assert 0 < occ.numpy().mean() < 1
+
+
+def _with_wide_tiles(n_wide):
+    """Camera tiles, then n_wide tiles of rays in every direction from the
+    scene's middle (those overflow the cpu row's 256-leaf budget)."""
+    rng = np.random.default_rng(9)
+    dw = rng.normal(size=(256 * n_wide, 3)).astype(np.float32)
+    dw /= np.linalg.norm(dw, axis=1, keepdims=True)
+    ow = np.full((256 * n_wide, 3), 5.0, np.float32)
+    if n_wide == 16:
+        return ow, dw
+    o, d = _camera(T=16 - n_wide)
+    return np.concatenate([o, ow]), np.concatenate([d, dw])
+
+
+def test_packet_overflow_repaired_by_wavefront_retrace(scene, monkeypatch):
+    """engine="packets" on a batch with overflowing tiles: the wavefront
+    retrace runs and the hits equal the JAX API's and the oracle's."""
+    from tinybvh_tpu_torch.traverse import wavefront
+
+    _, pb, jb = scene
+    o, d = _with_wide_tiles(2)
+    rays = tt.make_rays(o, d)
+    calls = []
+    real = wavefront.intersect_wavefront
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(wavefront, "intersect_wavefront", spy)
+    h = pb.intersect(rays, engine="packets")
+    assert calls and calls[0]["cap_factor"] == 8
+    _assert_hits(h, brute_force_closest(rays, pb.tris))
+    _assert_hits(h, jb.intersect(tb.make_rays(o, d), engine="packets"))
+
+
+def test_residual_overflow_raises(scene, monkeypatch):
+    """When the wavefront retrace's own frontier overflows, the API raises
+    instead of returning inexact hits."""
+    import dataclasses
+
+    from tinybvh_tpu_torch import tuning
+
+    _, pb, _ = scene
+    monkeypatch.setitem(tuning._TABLES, "cpu", dataclasses.replace(
+        tuning._TABLES["cpu"], wf_cap_factor=1))
+    o, d = _with_wide_tiles(16)
+    with pytest.raises(RuntimeError, match="frontier"):
+        pb.intersect(tt.make_rays(o, d), engine="packets")

@@ -8,8 +8,9 @@ no JAX, so it also runs where JAX is not installed:
 
 Tolerances (as tests/test_packet2.py:141-160): cull survivor keys and
 counts exactly equal; prim equal; t within rtol = atol = 1e-4; u, v
-within 1e-3. Both kernels round every multiply and add separately in the
-twins' order, so they are expected to agree bit for bit.
+within 1e-3. Kernels C and G are held to bit equality (t, row index,
+block mask). All four kernels round every multiply and add separately
+in the twins' order, so they are expected to agree bit for bit.
 """
 
 import numpy as np
@@ -174,3 +175,124 @@ def test_api_on_cuda_matches_oracle(scene):
     assert 0.0 < m.mean() < 1.0
     np.testing.assert_allclose(h.t.cpu().numpy()[m], ref.t.cpu().numpy()[m],
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_mt_gathered_kernel_matches_plain(scene, monkeypatch, sort):
+    """Kernel C on the gathered rows and gates of the fused=False path
+    (zero gates; with sort=True, distance gates from the sorted keys)."""
+    _, bvh = scene
+    o, d = _camera_rays()
+    calls = _capture(monkeypatch, "mt_resolve")
+    _trace(bvh, make_rays(o, d, device="cuda"), max_leaves=512,
+           fused=False, sort=sort)
+    (args,) = calls
+    assert args[2].shape[1] == 2048
+    t, i = packet2._mt_cuda(*args)
+    tr, ir = packet2._mt_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir)
+    assert torch.equal(t, tr)
+    assert bool((tr < 1e30).any())
+
+
+@pytest.mark.parametrize("span_mult", [1, 2])
+def test_cull_blocks_kernel_matches_plain(scene, monkeypatch, span_mult):
+    """Kernel G on the cull's own descriptors: the block mask equals the
+    plain twin's (cull_tiles' coarse tier), and through _worklists gives
+    the worklists the cull handed kernel A."""
+    _, bvh = scene
+    o, d = _camera_rays()
+    calls = _capture(monkeypatch, "cull")
+    _trace(bvh, make_rays(o, d, device="cuda"), span_mult=span_mult)
+    nblk0, wl0, desc = calls[0][:3]
+    aux = bvh.packet_aux
+    got = packet2._cull_blocks_cuda(desc, aux.blk_lo, aux.blk_hi,
+                                    aux.n_blocks)
+    ref = packet2._cull_blocks_plain(desc, aux.blk_lo, aux.blk_hi,
+                                     aux.n_blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool(got.any())
+    if span_mult == 1:
+        nblk, wl, _ = packet2._worklists(got[:, 0] > 0, wl0.shape[1])
+        assert torch.equal(nblk, nblk0) and torch.equal(wl, wl0)
+
+
+def test_cull_blocks_kernel_strides_past_128_blocks(scene, monkeypatch):
+    """Kernel G over nbpad = 384 block ids (each thread strides over three
+    of them) with n_blocks = 301, inside the last chunk: random boxes
+    around the scene, bit equal to the plain twin."""
+    _, bvh = scene
+    o, d = _camera_rays()
+    calls = _capture(monkeypatch, "cull")
+    _trace(bvh, make_rays(o, d, device="cuda"))
+    desc = calls[0][2]
+    rng = np.random.default_rng(7)
+    lo, hi = (np.asarray(x, np.float32) for x in bvh.aabb)
+    c = rng.uniform(lo, hi, (384, 3)).astype(np.float32)
+    r = rng.uniform(0.0, 0.2, (384, 3)).astype(np.float32) * (hi - lo)
+    blo = torch.from_numpy(np.ascontiguousarray((c - r).T)).cuda()
+    bhi = torch.from_numpy(np.ascontiguousarray((c + r).T)).cuda()
+    got = packet2._cull_blocks_cuda(desc, blo, bhi, 301)
+    ref = packet2._cull_blocks_plain(desc, blo, bhi, 301)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool(got[..., 128:301].any())
+    assert not bool(got[..., 301:].any())
+
+
+def test_new_wrappers_reject_bad_inputs(scene, monkeypatch):
+    """Kernels C and G: a wrong dtype, a mix of devices or a bad shape
+    raises; nothing falls back to the plain twin."""
+    _, bvh = scene
+    o, d = _camera_rays(T=8)
+    calls = _capture(monkeypatch, "mt_resolve")
+    _trace(bvh, make_rays(o, d, device="cuda"), fused=False)
+    args = list(calls[0])
+    before = dict(packet2.LAUNCHES)
+    bad = list(args)
+    bad[2] = args[2].double()
+    with pytest.raises(TypeError):
+        packet2.mt_resolve(*bad)
+    bad = list(args)
+    bad[4] = args[4].cpu()
+    with pytest.raises(ValueError):
+        packet2.mt_resolve(*bad)
+    bad = list(args)
+    bad[2] = args[2][:, :100].contiguous()
+    with pytest.raises(ValueError):
+        packet2.mt_resolve(*bad)
+    aux = bvh.packet_aux
+    desc = torch.zeros((16, 128), dtype=torch.float32, device="cuda")
+    with pytest.raises(TypeError):
+        packet2.cull_blocks(desc.half(), aux.blk_lo, aux.blk_hi, 1)
+    with pytest.raises(ValueError):
+        packet2.cull_blocks(desc, aux.blk_lo.cpu(), aux.blk_hi, 1)
+    with pytest.raises(ValueError):
+        packet2.cull_blocks(desc, aux.blk_lo[:, :100].contiguous(),
+                            aux.blk_hi[:, :100].contiguous(), 1)
+    assert packet2.LAUNCHES == before
+
+
+def test_unfused_and_wavefront_retrace_on_cuda(scene):
+    """fused=False and the wavefront retrace of a tiny budget on the
+    card: the same hits as the fused path and the oracle."""
+    _, bvh = scene
+    o, d = _camera_rays()
+    rays = make_rays(o, d, device="cuda")
+    before = dict(packet2.LAUNCHES)
+    hf, _ = _trace(bvh, rays, max_leaves=512)
+    hu, _ = _trace(bvh, rays, max_leaves=512, fused=False)
+    # every tile overflows 32 leaves; their frontier peaks near 8.3 pairs
+    # per ray, past the default cap of 8
+    hw, ov = packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                        max_leaves=32, retrace=True,
+                                        wf_cap_factor=16)
+    assert packet2.LAUNCHES["mt_gathered"] > before["mt_gathered"]
+    assert not bool(ov.any())
+    ref = brute_force_closest(rays, bvh.tris)
+    for h in (hf, hu, hw):
+        assert torch.equal(h.prim, ref.prim)
+        np.testing.assert_allclose(h.t.cpu().numpy(), ref.t.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)

@@ -6,7 +6,9 @@ tinybvh_tpu_torch (the kernels' plain twins, which the wrappers pick for
 CPU tensors). Tolerances as tests/test_packet2.py:141-160: prim equal
 except exact ties (both candidate hits within a relative 1e-6 in t), t
 within rtol = atol = 1e-4, u and v within 1e-3; cull survivor sets and
-counts exactly equal.
+counts, and the coarse block masks and worklists, exactly equal. The last four tests
+mirror tests/test_packet2.py's tests of the same names against the
+port's own wavefront engine and an f64 brute force.
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import tinybvh_tpu as tb  # noqa: E402
@@ -28,6 +31,7 @@ from tinybvh_tpu_torch.core.rays import make_rays  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
 from tinybvh_tpu_torch.traverse import packet2 as p2  # noqa: E402
 from tinybvh_tpu_torch.traverse.packet import _tile_planes  # noqa: E402
+from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -208,7 +212,7 @@ def test_occluded_sorted_matches_jax_and_oracle(scene):
     light = np.array([5.0, 14.0, 5.0], np.float32)
     occ, ovf = p2.is_occluded_packets2_sorted(
         bvh8, aux, torch.from_numpy(light), torch.from_numpy(pts),
-        retrace_ml=2048, retrace_blocks=256)
+        retrace="packet", retrace_ml=2048, retrace_blocks=256)
     assert not _np(ovf).any()
     jocc, _ = jp2.is_occluded_packets2_sorted(
         jb.bvh8, jb.packet_aux, light, pts, interpret=True,
@@ -247,10 +251,40 @@ def test_packet_retrace_restores_hits(scene):
                                 dict(retrace=True),
                                 dict(retrace="wavefront")])
 def test_unported_modes_raise(scene, kw):
+    """Opacity micromaps (ROADMAP queue 1, item 5c) are what packet2 still
+    lacks: every mode raises for tables that carry them."""
+    import dataclasses
+
     _, _, bvh8, aux = scene
     o, d = _camera_rays(T=1)
-    with pytest.raises(NotImplementedError):
-        p2.intersect_packets2(bvh8, aux, make_rays(o, d), **kw)
+    with pytest.raises(NotImplementedError, match="micromaps"):
+        p2.intersect_packets2(bvh8, dataclasses.replace(aux, omap_s=2),
+                              make_rays(o, d), **kw)
+
+
+@pytest.mark.parametrize("what", ["retrace", "occluded_retrace",
+                                  "unfused_span_mult", "unfused_budget",
+                                  "ragged_batch"])
+def test_bad_arguments_raise(scene, what):
+    """Arguments the JAX function asserts on or would misread raise
+    ValueError before any work."""
+    _, _, bvh8, aux = scene
+    o, d = _camera_rays(T=1)
+    rays = make_rays(o, d)
+    with pytest.raises(ValueError):
+        if what == "retrace":
+            p2.intersect_packets2(bvh8, aux, rays, retrace="exact")
+        elif what == "occluded_retrace":
+            p2.is_occluded_packets2(bvh8, aux, torch.zeros(3),
+                                    torch.from_numpy(d), retrace="exact")
+        elif what == "unfused_span_mult":
+            p2.intersect_packets2(bvh8, aux, rays, fused=False, span_mult=2)
+        elif what == "unfused_budget":
+            # 16 leaves = 4 keys: less than one 128-row block of kernel C
+            p2.intersect_packets2(bvh8, aux, rays, fused=False,
+                                  max_leaves=16)
+        else:
+            p2.intersect_packets2(bvh8, aux, make_rays(o[:200], d[:200]))
 
 
 def test_tiny_scene_and_pack1_tables(scene):
@@ -280,3 +314,207 @@ def test_tiny_scene_and_pack1_tables(scene):
         assert not _np(ov).any()
         assert_hits_match(h.prim, h.t, h.u, h.v, ref.prim, ref.t, ref.u,
                           ref.v)
+
+
+def _capture(monkeypatch, name):
+    """Record the positional arguments of every p2.<name> call."""
+    calls = []
+    real = getattr(p2, name)
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(p2, name, rec)
+    return calls
+
+
+def _wide_bundle():
+    """One tile of rays in every direction from the scene's middle: its
+    frustum is all-pass, so small budgets overflow."""
+    rng = np.random.default_rng(0)
+    dw = rng.normal(size=(256, 3)).astype(np.float32)
+    dw /= np.linalg.norm(dw, axis=1, keepdims=True)
+    return np.full((256, 3), 5.0, np.float32), dw
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_mt_resolve_matches_jax(scene, monkeypatch, sort):
+    """Kernel C's twin against the JAX mt_resolve in interpret mode on the
+    gathered rows and gates of the fused=False path."""
+    _, _, bvh8, aux = scene
+    o, d = _camera_rays(T=4)
+    calls = _capture(monkeypatch, "mt_resolve")
+    p2.intersect_packets2(bvh8, aux, make_rays(o, d), max_leaves=256,
+                          retrace=False, fused=False, sort=sort)
+    (a,) = calls
+    assert a[2].shape[1:] == (1024, 48)
+    t, i = p2.mt_resolve(*a)
+    tw, iw = jp2.mt_resolve(*[jnp.asarray(_np(x)) for x in a],
+                            interpret=True)
+    t, i, tw, iw = map(_np, (t, i, tw, iw))
+    np.testing.assert_allclose(t, tw, rtol=1e-4, atol=1e-4)
+    diff = i != iw
+    tie = np.abs(t - tw) <= 1e-6 * np.maximum(np.abs(tw), 1e-30)
+    assert not (diff & ~tie).any()
+    assert (t < 1e30).any()
+
+
+def test_cull_blocks_matches_jax_and_inline_tier(scene, monkeypatch):
+    """Kernel G's twin against _cull_blocks_kernel under
+    pl.pallas_call(interpret=True), built as
+    benchmarks/packet2_probe.py:116-148 builds it, on the cull's own
+    descriptors; through _worklists its mask gives exactly the worklists
+    cull_tiles handed kernel A's twin."""
+    from functools import partial
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    _, _, bvh8, aux = scene
+    o, d = _camera_rays(T=16)
+    calls = _capture(monkeypatch, "cull")
+    p2.intersect_packets2(bvh8, aux, make_rays(o, d), retrace=False)
+    desc = calls[0][2]
+    got = p2.cull_blocks(desc, aux.blk_lo, aux.blk_hi, aux.n_blocks)
+    tp = desc.shape[0]
+    G, nbpad = tp // p2.TB, aux.blk_lo.shape[1]
+    want = pl.pallas_call(
+        partial(jp2._cull_blocks_kernel, n_blocks=aux.n_blocks),
+        grid=(G,),
+        in_specs=[
+            pl.BlockSpec((p2.TB, 128), lambda g: (g, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((3, nbpad), lambda g: (0, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((3, nbpad), lambda g: (0, 0),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_shape=jax.ShapeDtypeStruct((G, 1, nbpad), jnp.int32),
+        out_specs=pl.BlockSpec((1, 1, nbpad), lambda g: (g, 0, 0),
+                               memory_space=pltpu.VMEM),
+        interpret=True,
+    )(*(jnp.asarray(_np(x)) for x in (desc, aux.blk_lo, aux.blk_hi)))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    nblk, wl, _ = p2._worklists(got[:, 0] > 0, calls[0][1].shape[1])
+    assert torch.equal(nblk, calls[0][0]) and torch.equal(wl, calls[0][1])
+    assert _np(got).any()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused=False), dict(sort=True), dict(sort=True, fused=False),
+    dict(retrace=True, max_leaves=32, wf_cap_factor=24),
+    dict(retrace=True, max_leaves=32, wf_cap_factor=24, fused=False),
+    dict(retrace="packet", max_leaves=32, fused=False, return_counts=True,
+         retrace_ml=2048, retrace_blocks=256),
+    dict(retrace=False, max_leaves=32, return_counts=True),
+], ids=["unfused", "sort", "sort_unfused", "wavefront_retrace",
+        "wavefront_retrace_unfused", "packet_retrace_unfused_counts",
+        "counts"])
+def test_intersect_modes_match_jax(scene, kw):
+    """intersect_packets2's modes against the JAX function in interpret
+    mode: hits, overflow masks and (return_counts) raw cull counts. The
+    max_leaves=32 cases trace an all-direction bundle that overflows
+    every tile."""
+    _, jb, bvh8, aux = scene
+    kw = dict(dict(max_leaves=256), **kw)
+    if kw["max_leaves"] == 32:
+        o, d = _wide_bundle()
+    else:
+        o, d = _camera_rays(T=4)
+    out = p2.intersect_packets2(bvh8, aux, make_rays(o, d), **kw)
+    jout = jp2.intersect_packets2(jb.bvh8, jb.packet_aux, tb.make_rays(o, d),
+                                  interpret=True, **kw)
+    assert len(out) == len(jout) == (3 if kw.get("return_counts") else 2)
+    h, jh = out[0], jout[0]
+    assert_hits_match(h.prim, h.t, h.u, h.v, jh.prim, jh.t, jh.u, jh.v)
+    np.testing.assert_array_equal(_np(out[1]), _np(jout[1]))
+    if kw.get("return_counts"):
+        np.testing.assert_array_equal(_np(out[2]), _np(jout[2]))
+        assert (_np(out[2]) > 8).all()
+    if kw.get("retrace"):
+        assert not _np(out[1]).any()
+    assert (_np(h.prim) >= 0).any()
+
+
+def test_primary_matches_wavefront(scene):
+    _, _, bvh8, aux = scene
+    o, d = _camera_rays(T=4)
+    rays = make_rays(o, d)
+    hits, ovf = p2.intersect_packets2(bvh8, aux, rays, max_leaves=256,
+                                      retrace=False)
+    ref, wovf = intersect_wavefront(bvh8, rays, cap_factor=16)
+    assert not wovf
+    assert not _np(ovf).any()
+    hp, rp = _np(hits.prim), _np(ref.prim)
+    assert (hp == rp).all()
+    m = rp >= 0
+    assert m.mean() > 0.3
+    for name, tol in (("t", 1e-4), ("u", 1e-3), ("v", 1e-3)):
+        np.testing.assert_allclose(_np(getattr(hits, name))[m],
+                                   _np(getattr(ref, name))[m],
+                                   rtol=tol, atol=tol)
+
+
+def test_occlusion_vs_brute_force(scene):
+    """Shadow segments to a light through the any-hit wavefront retrace,
+    against an f64 Möller–Trumbore brute force."""
+    tris, _, bvh8, aux = scene
+    o, d = _camera_rays(T=2)
+    ref, _ = intersect_wavefront(bvh8, make_rays(o, d), cap_factor=16)
+    pts = np.clip(_np(ref.t)[:, None] * d + o, -50, 50).astype(np.float32)
+    light = np.array([5.0, 14.0, 5.0], np.float32)
+    occ, ovf = p2.is_occluded_packets2(
+        bvh8, aux, torch.from_numpy(light), torch.from_numpy(pts[:512]),
+        retrace=True, wf_cap_factor=24)
+    assert not _np(ovf).any()
+    lt = np.asarray(tris, np.float64)
+    v0 = lt[:, 0]
+    e1 = lt[:, 1] - v0
+    e2 = lt[:, 2] - v0
+    oo = light.astype(np.float64)
+    for i in range(0, 512, 17):
+        dd = pts[i].astype(np.float64) - oo
+        h = np.cross(dd, e2)
+        det = (e1 * h).sum(1)
+        ok = np.abs(det) > 1e-15
+        inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+        s = oo - v0
+        u = (s * h).sum(1) * inv
+        q = np.cross(s, e1)
+        v = (dd[None] * q).sum(1) * inv
+        t = (e2 * q).sum(1) * inv
+        hit = (ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+               & (t < 1 - 1e-3))
+        assert bool(_np(occ)[i]) == bool(hit.any())
+
+
+def test_sorted_diffuse_matches_wavefront(scene):
+    _, _, bvh8, aux = scene
+    rng = np.random.default_rng(1234)
+    o = rng.uniform(-1, 11, (2048, 3)).astype(np.float32)
+    d = rng.normal(size=(2048, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = make_rays(o, d)
+    hits, fb = p2.intersect_packets2_sorted(
+        bvh8, aux, rays, [0.0, 0.0, 0.0], [10.0, 10.0, 10.0],
+        max_leaves=256, retrace=True, wf_cap_factor=24)
+    ref, wovf = intersect_wavefront(bvh8, rays, cap_factor=24)
+    assert not wovf
+    assert not _np(fb).any()
+    assert (_np(hits.prim) == _np(ref.prim)).all()
+
+
+def test_overflow_reported_and_retraced(scene):
+    """A tiny leaf budget flags overflow; the wavefront retrace restores
+    the hits and clears the mask."""
+    _, _, bvh8, aux = scene
+    rays = make_rays(*_wide_bundle())
+    _, ovf0 = p2.intersect_packets2(bvh8, aux, rays, max_leaves=32,
+                                    retrace=False)
+    assert _np(ovf0).all()
+    hits1, ovf1 = p2.intersect_packets2(bvh8, aux, rays, max_leaves=32,
+                                        retrace=True, wf_cap_factor=24)
+    ref, _ = intersect_wavefront(bvh8, rays, cap_factor=24)
+    assert (_np(hits1.prim) == _np(ref.prim)).all()
+    assert not _np(ovf1).any()

@@ -78,6 +78,10 @@ _SIGNATURES = {
     "tbvh_mt_fused": [_P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _P],
+    # mt_gathered.cu
+    "tbvh_mt_gathered": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # cull_blocks.cu
+    "tbvh_cull_blocks": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

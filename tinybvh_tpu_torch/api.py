@@ -1,12 +1,12 @@
 """High-level API: `BVH(tris, device=...).intersect(rays)`
 (≙ tinybvh_tpu/api.py; bvh.Build + bvh.Intersect, tiny_bvh.h:884-960).
 
-The port's slice covers the packet path: the native SAH build, the
-8-wide collapse, the packet tables, and the packet2 trace with the
-escalated packet retrace. On a CUDA device that trace runs the two
-hand-written kernels; on the CPU it runs their plain twins. A residual
-overflow raises RuntimeError: the exact wavefront retrace is not ported
-yet, and approximate hits are never returned silently."""
+The port covers the native SAH build, the 8-wide collapse, the packet
+tables, and three engines: the packet2 trace with the wavefront retrace
+(on a CUDA device it runs the hand-written kernels; on the CPU their
+plain twins), the wavefront and the per-ray-stack lockstep engine. An
+overflow the wavefront retrace cannot repair raises RuntimeError:
+approximate hits are never returned silently."""
 
 from __future__ import annotations
 
@@ -108,59 +108,97 @@ class BVH:
         """Root box (lo, hi) as numpy (3,) arrays."""
         return self._host["node_min"][0], self._host["node_max"][0]
 
-    def _packet_trace(self, rays: Rays, t_max, engine: str, any_hit: bool):
-        """(R,) hits, or with any_hit (R,) occlusion flags. Rays sharing
-        one origin (shadow rays traced from a light) are bundled by
-        direction; others by the coherence sort."""
+    def _engine(self, rays: Rays, t_max, engine: str) -> str:
+        """The engine of one call (≙ JAX api.py:244-289): "packets" for
+        engine="packets", and for "auto" on a CUDA BVH with a scalar t_max
+        and R % 256 == 0, R >= 4096 (CUDA is the counterpart of the TPU
+        gate); "lockstep" for engine="lockstep"; "wavefront" otherwise
+        (small or ragged batches, per-ray t_max, the CPU)."""
+        if engine in ("rayloop", "lockstep2"):
+            raise _unsupported(f"engine={engine!r}", 6)
+        if engine not in ("auto", "packets", "wavefront", "lockstep"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if rays.o.device != self.device:
+            raise ValueError(f"rays on {rays.o.device}, BVH on {self.device}")
+        R = rays.o.shape[0]
+        t_scalar = not (hasattr(t_max, "shape") and len(t_max.shape) > 0)
+        if t_scalar and (engine == "packets" or (
+                engine == "auto" and self.device.type == "cuda"
+                and R % 256 == 0 and R >= 4096)):
+            return "packets"
+        return "lockstep" if engine == "lockstep" else "wavefront"
+
+    def _packet_trace(self, rays: Rays, t_max, any_hit: bool):
+        """(R,) hits, or with any_hit (R,) occlusion flags, from the packet
+        path with the wavefront retrace. Rays sharing one origin (shadow
+        rays traced from a light) are bundled by direction; others by the
+        coherence sort."""
         from tinybvh_tpu_torch.traverse.packet2 import (
             intersect_packets2_sorted, occluded_direction_sorted,
         )
         from tinybvh_tpu_torch.tuning import get_tuning
 
-        R = rays.o.shape[0]
-        if engine not in ("auto", "packets"):
-            raise _unsupported(f"engine={engine!r}", 6)
-        if hasattr(t_max, "shape"):
-            raise _unsupported("a per-ray t_max on the packet path", 5)
-        if R % 256 or R < 4096:
-            raise _unsupported(
-                f"{R} rays (the packet path takes multiples of 256, at "
-                "least 4096; smaller batches go to the wavefront engine)", 6)
-        if rays.o.device != self.device:
-            raise ValueError(f"rays on {rays.o.device}, BVH on {self.device}")
         tun = get_tuning(device=self.device)
         kw = dict(max_leaves=tun.max_leaves, max_blocks=tun.max_blocks,
-                  retrace="packet", retrace_ml=tun.retrace_ml)
+                  wf_cap_factor=tun.wf_cap_factor)
+        t_max = float(t_max)
         if any_hit and bool((rays.o == rays.o[:1]).all()):
             out, ovf = occluded_direction_sorted(
-                self.bvh8, self.packet_aux, rays, float(t_max), **kw)
+                self.bvh8, self.packet_aux, rays, t_max, **kw)
         else:
             lo, hi = self.aabb
             out, ovf = intersect_packets2_sorted(
                 self.bvh8, self.packet_aux, rays, lo, hi, any_hit=any_hit,
-                t_max_static=float(t_max), **kw)
+                t_max_static=t_max, **kw)
             if any_hit:
-                out = (out.prim >= 0) & (out.t < float(t_max))
+                out = (out.prim >= 0) & (out.t < t_max)
         n_ovf = int(ovf.sum())
         if n_ovf:
             raise RuntimeError(
-                f"{n_ovf} rays overflowed the escalated packet budget; "
-                "their exact retrace (the wavefront engine) is not ported "
-                "yet")
+                f"{n_ovf} rays overflowed the wavefront retrace's frontier "
+                f"({tun.wf_cap_factor} pairs per ray); their hits would not "
+                "be exact")
         return out
 
     def intersect(self, rays: Rays, t_max=BVH_FAR,
                   engine: str = "auto") -> Hits:
-        """Closest hit. engine "auto" and "packets" run the packet2
-        pipeline with the escalated packet retrace; other engines are not
-        ported yet."""
-        return self._packet_trace(rays, t_max, engine, any_hit=False)
+        """Closest hit. engine:
+          "auto"      packets on CUDA for large tile-shaped batches with a
+                      scalar t_max, else the wavefront;
+          "packets"   the packet2 pipeline with coherence sort and the
+                      wavefront retrace (R % 256 == 0);
+          "wavefront" level-synchronous BFS; falls back to "lockstep"
+                      when its frontier overflows;
+          "lockstep"  per-ray stacks (traverse.wide).
+        All are exact (≙ the reference's per-layout Intersect)."""
+        from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
+        from tinybvh_tpu_torch.traverse.wide import intersect_bvh8
+
+        eng = self._engine(rays, t_max, engine)
+        if eng == "packets":
+            return self._packet_trace(rays, t_max, any_hit=False)
+        if eng == "wavefront":
+            h, ovf = intersect_wavefront(self.bvh8, rays, t_max, cap_factor=8)
+            if not ovf:
+                return h
+        return intersect_bvh8(self.bvh8, rays, t_max)
 
     def is_occluded(self, rays: Rays, t_max,
                     engine: str = "auto") -> torch.Tensor:
         """(R,) bool: any hit in (0, t_max); engine semantics as in
-        intersect()."""
-        return self._packet_trace(rays, t_max, engine, any_hit=True)
+        intersect() (≙ JAX api.py:294-323)."""
+        from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
+        from tinybvh_tpu_torch.traverse.wide import is_occluded_bvh8
+
+        eng = self._engine(rays, t_max, engine)
+        if eng == "packets":
+            return self._packet_trace(rays, t_max, any_hit=True)
+        if eng == "wavefront":
+            _, occ, ovf = intersect_wavefront(self.bvh8, rays, t_max,
+                                              cap_factor=8, any_hit=True)
+            if not ovf:
+                return occ
+        return is_occluded_bvh8(self.bvh8, rays, t_max)
 
     def refit(self, new_tris=None):
         raise _unsupported("refit", 7)

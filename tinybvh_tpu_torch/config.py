@@ -16,6 +16,9 @@ class Config:
     # pack subtrees of <= this many prims into one wide-layout leaf during
     # the native collapse (≙ CombineLeafs(4), tiny_bvh.h:5463-5465)
     leaf_combine: int = 4
+    # leaf triangle test of the wavefront and lockstep engines
+    # (≙ WATERTIGHT_TRITEST, tiny_bvh.h:131); the port has "mt" so far
+    tri_test: str = "mt"
     # ≙ VALIDATE_RAY (tiny_bvh.h:1663-1665): make_rays rejects non-finite
     # or zero-length rays
     validate_rays: bool = False

@@ -4,7 +4,8 @@ the exact same tables.
 `from_numpy_tables(bvh8_np, aux_np, device)` takes objects with the
 fields of the JAX `BVH8` and `PacketAux` (any array type numpy can read,
 e.g. jax arrays read back to the host) and returns the port's BVH8 and
-PacketAux on `device`. It imports nothing of JAX."""
+PacketAux on `device`; `from_numpy_bvh8` carries the BVH8 alone. It
+imports nothing of JAX."""
 
 from __future__ import annotations
 
@@ -19,9 +20,13 @@ def _t(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def from_numpy_tables(bvh8_np, aux_np, device="cpu"):
-    bvh8 = BVH8(**{k: _t(getattr(bvh8_np, k), device)
+def from_numpy_bvh8(bvh8_np, device="cpu") -> BVH8:
+    return BVH8(**{k: _t(getattr(bvh8_np, k), device)
                    for k in ("bounds", "child", "leaf_tris", "leaf_prim")})
+
+
+def from_numpy_tables(bvh8_np, aux_np, device="cpu"):
+    bvh8 = from_numpy_bvh8(bvh8_np, device)
     aux = PacketAux(
         **{k: _t(getattr(aux_np, k), device)
            for k in ("leaf_lo", "leaf_hi", "blk_lo", "blk_hi", "gtab_pad",

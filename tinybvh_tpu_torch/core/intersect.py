@@ -37,19 +37,43 @@ def moller_trumbore(o, d, v0, e1, e2, t_cur):
     return hit, torch.where(hit, t, torch.full_like(t, BVH_FAR)), u, v
 
 
+TRI_TESTS = ("mt", "watertight", "baldwin")
+
+
+def check_tri_test(tri_test: str) -> None:
+    """Raise unless the port has the leaf test `tri_test`."""
+    if tri_test in ("watertight", "baldwin"):
+        raise NotImplementedError(
+            f"tri_test={tri_test!r} is not ported yet (ROADMAP queue 1, "
+            "item 2)")
+    if tri_test not in TRI_TESTS:
+        raise ValueError(
+            f"tri_test must be one of {TRI_TESTS}, got {tri_test!r}")
+
+
+def leaf_intersect(tri_test, o, d, rd, v0, v1, v2, t_cur):
+    """The engines' leaf triangle test, chosen by Config.tri_test
+    (≙ JAX leaf_intersect; WATERTIGHT_TRITEST, tiny_bvh.h:131). v0/v1/v2
+    are the raw vertices; rd is read by the watertight test. Returns
+    (hit, t, u, v)."""
+    del rd
+    check_tri_test(tri_test)
+    return moller_trumbore(o, d, v0, v1 - v0, v2 - v0, t_cur)
+
+
 def _chunks(tris, chunk):
     for base in range(0, tris.shape[0], chunk):
         yield base, tris[base:base + chunk]
 
 
 def brute_force_closest(rays, tris, t_max=BVH_FAR, chunk: int = 4096) -> Hits:
-    """O(R*N) closest hit, chunked over triangles (tris (N, 3, 3) on the
-    rays' device)."""
+    """O(R*N) closest hit in (0, t_max), chunked over triangles (tris
+    (N, 3, 3) on the rays' device; t_max scalar or (R,))."""
     o, d = rays.o[:, None, :], rays.d[:, None, :]
     R = o.shape[0]
     hits = no_hits((R,), device=o.device)
-    best_t = torch.full((R,), float(t_max), dtype=torch.float32,
-                        device=o.device)
+    best_t = torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=o.device), (R,)).clone()
     for base, tc in _chunks(tris, chunk):
         v0, e1, e2 = tri_edges(tc)
         _, t, u, v = moller_trumbore(o, d, v0[None], e1[None], e2[None],

@@ -1,4 +1,7 @@
-// Shared constants of the packet2 kernels (see traverse/packet2.py).
+// Shared constants and device functions of the packet2 kernels (see
+// traverse/packet2.py). Every multiply and add is rounded separately
+// (__fmul_rn / __fadd_rn, no FMA contraction) in the order of the JAX
+// kernels, so the kernels agree with the plain PyTorch twins bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,5 +22,75 @@ constexpr int kDOlo = 28;
 constexpr int kDOhi = 31;
 constexpr int kDTcap = 34;
 constexpr int kDLanes = 35;
+
+// Plane test of kernels A and G (≙ JAX _frustum_pass, negated): true when
+// the box [lo, hi] lies outside any of the 4 planes of the tile whose
+// descriptor lanes are d. Twin: packet2.py _frustum_outside.
+__device__ __forceinline__ bool frustum_outside(const float* d,
+                                                const float lo[3],
+                                                const float hi[3]) {
+  bool outside = false;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    float dist = -d[kDThr + p];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int q = p * 3 + k;
+      dist = __fadd_rn(__fadd_rn(dist, __fmul_rn(d[kDPosn + q], hi[k])),
+                       __fmul_rn(d[kDNegn + q], lo[k]));
+    }
+    outside |= dist < 0.f;
+  }
+  return outside;
+}
+
+// Triple-product Möller–Trumbore terms of kernels B and C: det, u', v', t'
+// as 12-lane dots of one triangle's 48-lane row g ([G_det|G_u|G_v|G_t])
+// with the ray features f = [d, o x d, o, 1, 0, 0], in lane order, then
+// sign-flipped so det >= 0. Twin: packet2.py _signed_terms.
+struct SignedTerms {
+  float ad, us, vs, ts;
+  bool hit;
+};
+
+__device__ __forceinline__ SignedTerms signed_terms(const float* g,
+                                                    const float* f) {
+  float det = 0.f, up = 0.f, vp = 0.f, tp = 0.f;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    det = __fadd_rn(det, __fmul_rn(g[k], f[k]));
+    up = __fadd_rn(up, __fmul_rn(g[12 + k], f[k]));
+    vp = __fadd_rn(vp, __fmul_rn(g[24 + k], f[k]));
+    tp = __fadd_rn(tp, __fmul_rn(g[36 + k], f[k]));
+  }
+  const float s = det >= 0.f ? 1.f : -1.f;
+  SignedTerms r;
+  r.ad = __fmul_rn(det, s);
+  r.us = __fmul_rn(up, s);
+  r.vs = __fmul_rn(vp, s);
+  r.ts = __fmul_rn(tp, s);
+  r.hit = r.us >= 0.f && r.vs >= 0.f && __fadd_rn(r.us, r.vs) <= r.ad &&
+          r.ts > 0.f && r.ad > 0.f;
+  return r;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+
+// CTA-wide max of v over a kTile-thread CTA (NaN-propagating, as jnp.max
+// and torch.amax). red: kTile / 32 floats of shared memory.
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < kTile / 32; ++w) r = nan_max(r, red[w]);
+  __syncthreads();  // red is reused by the next call
+  return r;
+}
 
 }  // namespace tbvh

@@ -23,7 +23,8 @@
 // k_cap while only the first k_cap keys are written; the tail is padded
 // with I32MAX. Multiplies and adds are rounded separately (__fmul_rn /
 // __fadd_rn, no FMA contraction) in the JAX kernel's order, so the
-// survivor sets equal the plain PyTorch twin's bit for bit.
+// survivor sets equal the plain PyTorch twin's bit for bit. The plane test
+// is common.cuh's frustum_outside, shared with kernel G.
 #include "common.cuh"
 
 namespace tbvh {
@@ -66,18 +67,7 @@ cull_kernel(const int* __restrict__ nblk, const int* __restrict__ wl,
     unsigned bal[kTB];
 #pragma unroll
     for (int t = 0; t < kTB; ++t) {
-      bool outside = false;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        float dist = -sd[t][kDThr + p];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const int q = p * 3 + k;
-          dist = __fadd_rn(__fadd_rn(dist, __fmul_rn(sd[t][kDPosn + q], hi[k])),
-                           __fmul_rn(sd[t][kDNegn + q], lo[k]));
-        }
-        outside |= dist < 0.f;
-      }
+      const bool outside = frustum_outside(sd[t], lo, hi);
       // conservative origin-box -> segment-box distance
       float g2 = 0.f;
 #pragma unroll

@@ -38,47 +38,15 @@ namespace {
 constexpr int kChunk = 64;     // rows staged per chunk
 constexpr int kMaxLanes = 98;  // [A 0:48 | B 48:96 | pidA 96 | pidB 97]
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-
-// CTA-wide max of v (NaN-propagating, as jnp.max / torch.amax).
-__device__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kTile / 32; ++w) r = nan_max(r, red[w]);
-  __syncthreads();  // red is reused by the next call
-  return r;
-}
-
 // MT for the triangle at lanes [base, base+48) of row g.
 __device__ __forceinline__ void mt_half(const float* g, int base,
                                         const float* f, bool live, float& tt,
                                         float& u, float& v) {
-  float det = 0.f, up = 0.f, vp = 0.f, tp = 0.f;
-#pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    det = __fadd_rn(det, __fmul_rn(g[base + k], f[k]));
-    up = __fadd_rn(up, __fmul_rn(g[base + 12 + k], f[k]));
-    vp = __fadd_rn(vp, __fmul_rn(g[base + 24 + k], f[k]));
-    tp = __fadd_rn(tp, __fmul_rn(g[base + 36 + k], f[k]));
-  }
-  const float s = det >= 0.f ? 1.f : -1.f;
-  const float ad = __fmul_rn(det, s);
-  const float us = __fmul_rn(up, s);
-  const float vs = __fmul_rn(vp, s);
-  const float ts = __fmul_rn(tp, s);
-  const bool hit = us >= 0.f && vs >= 0.f && __fadd_rn(us, vs) <= ad &&
-                   ts > 0.f && ad > 0.f;
-  const float inv = __fdiv_rn(1.f, ad > 0.f ? ad : 1.f);
-  tt = (hit && live) ? __fmul_rn(ts, inv) : kFar;
-  u = __fmul_rn(us, inv);
-  v = __fmul_rn(vs, inv);
+  const SignedTerms s = signed_terms(g + base, f);
+  const float inv = __fdiv_rn(1.f, s.ad > 0.f ? s.ad : 1.f);
+  tt = (s.hit && live) ? __fmul_rn(s.ts, inv) : kFar;
+  u = __fmul_rn(s.us, inv);
+  v = __fmul_rn(s.vs, inv);
 }
 
 __global__ void __launch_bounds__(kTile)

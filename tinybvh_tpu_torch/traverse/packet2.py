@@ -1,7 +1,7 @@
 """Packet traversal v2 on PyTorch: frustum cull -> near-to-far fused MT
 (≙ tinybvh_tpu/traverse/packet2.py, the main path of BVH.intersect).
 
-Two hand-written CUDA kernels carry the pipeline, each with a plain
+Four hand-written CUDA kernels carry the pipeline, each with a plain
 PyTorch twin of the same signature beside it:
 
   kernel A, `cull` (csrc/cull.cu; replaces `_cull_kernel`): the fine
@@ -10,17 +10,25 @@ PyTorch twin of the same signature beside it:
   kernel B, `mt_fused` (csrc/mt_fused.cu; replaces `_mt_fused_kernel`):
       per 256-ray tile, walk the pre-decoded segment row offsets in
       near-to-far super-blocks and run the triple-product Möller–Trumbore
-      with a tile-wide distance-gate early exit.
+      with a tile-wide distance-gate early exit;
+  kernel C, `mt_resolve` (csrc/mt_gathered.cu; replaces `_mt_kernel`):
+      the same test over triangle rows gathered beforehand into
+      (T, K4, 48), in 128-row blocks (the `fused=False` path);
+  kernel G, `cull_blocks` (csrc/cull_blocks.cu; replaces
+      `_cull_blocks_kernel`): the coarse tier as a kernel, which 128-
+      segment blocks meet any of a group's 8 tile frusta. As in the JAX
+      package, `cull_tiles` runs this tier as array ops; the kernel is
+      what the cull-stage probes time against them.
 
 A wrapper runs the plain twin only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts kernel
 launches (never plain-twin calls).
 
 Everything around the kernels (tile frusta, the coarse block tier, the
-worklist compaction, block ordering, offset pre-decode, hit assembly,
-the escalated packet retrace) is plain torch, as it is XLA in the JAX
-package. Not ported yet (raise NotImplementedError): `fused=False`,
-`sort=True`, the wavefront retrace, opacity micromaps.
+worklist compaction, block ordering or the full key sort, offset
+pre-decode or the row gather, hit assembly, the packet and wavefront
+retraces) is plain torch, as it is XLA in the JAX package. Not ported
+yet (raise NotImplementedError): opacity micromaps.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from tinybvh_tpu_torch import _build
+from tinybvh_tpu_torch.core.intersect import moller_trumbore, tri_edges
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR, cross, norm
 from tinybvh_tpu_torch.layouts.mbvh import BVH8
@@ -42,9 +51,10 @@ _I32MAX = 2**31 - 1
 _LEAF_BITS = 18          # segment id in the low bits of a cull key
 TB = 8                   # tiles per cull group
 LANES = 128              # segments per cull block
-TRI_BLK = 128            # default MT super-block rows
+TRI_BLK = 128            # kernel C block rows (default MT super-block)
 SPAN = 4                 # leaves per cull segment
 SEG_ROWS = 4 * SPAN      # triangles per segment
+_KPB = TRI_BLK // SEG_ROWS   # segment keys per kernel C block
 M_MAX = 8                # span_mult cap (gtab_pad's zero tail covers it)
 
 # tile-descriptor lanes of the (T, 128) cull descriptor rows
@@ -56,7 +66,7 @@ _D_OHI = 31      # 3 lanes: tile origin-box hi
 _D_TCAP = 34     # 1 lane: reach cap (world distance)
 _D_LANES = 35
 
-LAUNCHES = {"cull": 0, "mt_fused": 0}
+LAUNCHES = {"cull": 0, "mt_fused": 0, "mt_gathered": 0, "cull_blocks": 0}
 
 
 @dataclass
@@ -185,6 +195,78 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _frustum_outside(d, lo, hi):
+    """Plane test of kernels A and G (≙ JAX _frustum_pass, negated): True
+    where a box lies outside any of a tile's 4 planes. d (..., 128) tile
+    descriptor rows, lo/hi (3, ...) boxes, broadcast against each other.
+    Separate multiplies and adds in the JAX order, as the kernels round
+    them (csrc/common.cuh frustum_outside)."""
+    outside = None
+    for p in range(4):
+        dist = -d[..., _D_THR + p]
+        for k in range(3):
+            q = p * 3 + k
+            dist = (dist + d[..., _D_POSN + q] * hi[k]
+                    + d[..., _D_NEGN + q] * lo[k])
+        o_p = dist < 0.0
+        outside = o_p if outside is None else outside | o_p
+    return outside
+
+
+# --------------------------------------------------------------------------
+# kernel G: coarse block cull
+# --------------------------------------------------------------------------
+
+def _cull_blocks_plain(desc, blk_lo, blk_hi, n_blocks: int):
+    """Plain twin of kernel G, and the coarse tier cull_tiles runs as
+    torch ops (≙ the JAX inline XLA tier, :681-694). desc (tp, 128) f32
+    tile descriptors (_D_* lanes, tp = G*TB); blk_lo/blk_hi (3, nbpad)
+    f32 block union boxes. Returns (G, 1, nbpad) i32: 1 where block id <
+    n_blocks meets the frustum of any of the group's TB tiles."""
+    G = desc.shape[0] // TB
+    nbpad = blk_lo.shape[1]
+    d = desc.view(G, TB, 1, 128)
+    inside = ~_frustum_outside(d, blk_lo, blk_hi)           # (G, TB, nbpad)
+    inb = torch.arange(nbpad, device=desc.device) < n_blocks
+    return (inside & inb).any(dim=1).to(torch.int32).reshape(G, 1, nbpad)
+
+
+def _cull_blocks_cuda(desc, blk_lo, blk_hi, n_blocks: int):
+    """Kernel G launch (csrc/cull_blocks.cu); same contract as the plain
+    twin."""
+    tp = desc.shape[0]
+    nbpad = blk_lo.shape[1]
+    G = tp // TB
+    _check("cull_blocks desc", desc, torch.float32, (G * TB, 128))
+    _check("cull_blocks blk_lo", blk_lo, torch.float32, (3, nbpad))
+    _check("cull_blocks blk_hi", blk_hi, torch.float32, (3, nbpad))
+    mask = torch.empty((G, 1, nbpad), dtype=torch.int32, device=desc.device)
+    if G == 0:
+        return mask
+    lib = _build.kernels()
+    stream = torch.cuda.current_stream(desc.device).cuda_stream
+    err = lib.tbvh_cull_blocks(desc.data_ptr(), blk_lo.data_ptr(),
+                               blk_hi.data_ptr(), mask.data_ptr(), G, nbpad,
+                               n_blocks, stream)
+    _build.check(err, "tbvh_cull_blocks")
+    LAUNCHES["cull_blocks"] += 1
+    return mask
+
+
+def cull_blocks(desc, blk_lo, blk_hi, n_blocks: int):
+    """Kernel G on CUDA tensors, its plain twin on CPU tensors. There is
+    no JAX wrapper: this is the probes' inline pallas_call
+    (benchmarks/packet2_probe.py:116-148), desc (tp, 128), blk_lo/hi
+    (3, nbpad) -> (tp // 8, 1, nbpad) i32 block mask."""
+    if desc.shape[0] % TB or blk_lo.shape[1] % LANES:
+        raise ValueError(f"cull_blocks: tiles ({desc.shape[0]}) must be a "
+                         f"multiple of {TB} and nbpad ({blk_lo.shape[1]}) "
+                         f"of {LANES}")
+    if _on_cuda("cull_blocks", desc, blk_lo, blk_hi):
+        return _cull_blocks_cuda(desc, blk_lo, blk_hi, n_blocks)
+    return _cull_blocks_plain(desc, blk_lo, blk_hi, n_blocks)
+
+
 # --------------------------------------------------------------------------
 # kernel A: fine frustum cull
 # --------------------------------------------------------------------------
@@ -219,26 +301,18 @@ def _cull_plain(nblk, wl, desc, llo, lhi, n_leaves: int, k_cap: int,
         seg = blk[..., None] * LANES + lanes                 # (g, J, 128)
         lo = llo[:, seg][:, :, None]                         # (3,g,1,J,128)
         hi = lhi[:, seg][:, :, None]
-        d = dsc[g0:g1][..., None, None]                      # (g,TB,128,1,1)
-        outside = None
-        for p in range(4):
-            dist = -d[:, :, _D_THR + p]
-            for k in range(3):
-                q = p * 3 + k
-                dist = (dist + d[:, :, _D_POSN + q] * hi[k]
-                        + d[:, :, _D_NEGN + q] * lo[k])
-            o_p = dist < 0.0
-            outside = o_p if outside is None else outside | o_p
-        passed = ~outside & ((seg < n_leaves) & bvalid[..., None])[:, None]
+        d = dsc[g0:g1][:, :, None, None, :]                  # (g,TB,1,1,128)
+        passed = (~_frustum_outside(d, lo, hi)
+                  & ((seg < n_leaves) & bvalid[..., None])[:, None])
         # conservative origin-box -> segment-box distance
         g2 = None
         for k in range(3):
-            gk = torch.maximum(d[:, :, _D_OLO + k] - hi[k],
-                               lo[k] - d[:, :, _D_OHI + k])
+            gk = torch.maximum(d[..., _D_OLO + k] - hi[k],
+                               lo[k] - d[..., _D_OHI + k])
             gk = torch.clamp(gk, min=0.0)
             g2 = gk * gk if g2 is None else g2 + gk * gk
         lb = torch.sqrt(g2)
-        passed &= lb < d[:, :, _D_TCAP]
+        passed &= lb < d[..., _D_TCAP]
         key = (((lb.view(torch.int32) >> leaf_bits) << leaf_bits)
                | seg[:, None])
         rows = (g1 - g0) * TB
@@ -300,9 +374,10 @@ def cull_tiles(aux: PacketAux, posn, negn, thresh, olo, ohi, tcap=None,
     keys of every segment whose union box meets the tile frustum (live
     keys first, I32MAX padded; order inside a tile is free) and the
     survivor counts. Tier 1 tests 128-segment block boxes per group of TB
-    tiles (torch ops); a cumsum/scatter-amax compacts surviving block ids
-    into per-group worklists; tier 2 is kernel A. Groups whose worklist
-    overflows max_blocks report count = k_cap+1 on all their tiles.
+    tiles (torch ops: kernel G's twin); a cumsum/scatter-amax compacts
+    surviving block ids into per-group worklists; tier 2 is kernel A.
+    Groups whose worklist overflows max_blocks report count = k_cap+1 on
+    all their tiles.
 
     posn/negn (T, 4, 3), thresh (T, 4), olo/ohi (T, 3), tcap (T,).
     span_mult: each key covers span_mult consecutive segments (their
@@ -325,7 +400,6 @@ def cull_tiles(aux: PacketAux, posn, negn, thresh, olo, ohi, tcap=None,
         ohi = torch.cat([ohi, z(pad, 3)])
         tcap = torch.cat([tcap, z(pad)])
     tp = posn.shape[0]
-    G = tp // TB
     if span_mult == 1:
         llo, lhi = aux.leaf_lo, aux.leaf_hi
         blo_t, bhi_t = aux.blk_lo, aux.blk_hi
@@ -347,7 +421,6 @@ def cull_tiles(aux: PacketAux, posn, negn, thresh, olo, ohi, tcap=None,
         blo_t = torch.cat([blo_t, _full3(nbp - nbm, BVH_FAR, dev)], dim=1)
         bhi_t = torch.cat([bhi_t, _full3(nbp - nbm, -BVH_FAR, dev)], dim=1)
         nb = -(-n_segs // LANES)
-    nbpad = blo_t.shape[1]
 
     desc = torch.cat([
         posn.reshape(tp, 12), negn.reshape(tp, 12), thresh, olo, ohi,
@@ -355,18 +428,23 @@ def cull_tiles(aux: PacketAux, posn, negn, thresh, olo, ohi, tcap=None,
         torch.zeros((tp, 128 - _D_LANES), dtype=torch.float32, device=dev),
     ], dim=1).contiguous()
 
-    # tier 1: coarse block mask per group (explicit broadcasts, no einsum)
-    dist = -thresh[:, :, None]                             # (tp, 4, 1)
-    for k in range(3):
-        dist = (dist + posn[:, :, k, None] * bhi_t[None, k, :]
-                + negn[:, :, k, None] * blo_t[None, k, :])
-    inb = torch.arange(nbpad, device=dev) < nb
-    blkmask = ((~(dist < 0.0).any(dim=1)) & inb).reshape(
-        G, TB, nbpad).any(dim=1)
+    blkmask = _cull_blocks_plain(desc, blo_t, bhi_t, nb)[:, 0] > 0
+    nblk, wl, n_blk_g = _worklists(blkmask, max_blocks)
+    keys, cnt = cull(nblk, wl, desc, llo.contiguous(), lhi.contiguous(),
+                     n_segs, k_cap, leaf_bits)
+    over = torch.repeat_interleave(n_blk_g > max_blocks, TB)
+    counts = torch.where(over, k_cap + 1, cnt)
+    return keys[:T], counts[:T]
 
-    # worklist compaction: surviving block ids per group, in block order
-    # (the JAX .at[].max scatter; ranks past the depth pile into the last
-    # slot, as there — such groups are flagged below)
+
+def _worklists(blkmask, max_blocks: int):
+    """Surviving block ids per group, in block order (the JAX .at[].max
+    scatter; ranks past the depth pile into the last slot, as there).
+    blkmask (G, nbpad) bool -> (nblk (G,) i32 clamped to max_blocks,
+    wl (G, max_blocks) i32, n_blk_g (G,) i32 true counts: groups with
+    n_blk_g > max_blocks overflow)."""
+    G, nbpad = blkmask.shape
+    dev = blkmask.device
     mi = blkmask.to(torch.int32)
     rank = torch.cumsum(mi, dim=1, dtype=torch.int32) - mi
     blk_ids = torch.arange(nbpad, dtype=torch.int32,
@@ -376,29 +454,24 @@ def cull_tiles(aux: PacketAux, posn, negn, thresh, olo, ohi, tcap=None,
         1, torch.where(blkmask, torch.clamp(rank, max=max_blocks - 1),
                        max_blocks).long(),
         torch.where(blkmask, blk_ids, -1), reduce="amax")
-    wl = wl[:, :max_blocks].contiguous()
     n_blk_g = mi.sum(dim=1, dtype=torch.int32)
     nblk = torch.clamp(n_blk_g, max=max_blocks).contiguous()
-
-    keys, cnt = cull(nblk, wl, desc, llo.contiguous(), lhi.contiguous(),
-                     n_segs, k_cap, leaf_bits)
-    over = torch.repeat_interleave(n_blk_g > max_blocks, TB)
-    counts = torch.where(over, k_cap + 1, cnt)
-    return keys[:T], counts[:T]
+    return nblk, wl[:, :max_blocks].contiguous(), n_blk_g
 
 
 # --------------------------------------------------------------------------
 # kernel B: fused gather + triple-product Möller–Trumbore
 # --------------------------------------------------------------------------
 
-_MT_TILES = 64   # plain twin: tiles per chunk (bounds temporaries)
+_MT_TILES = 64   # plain twins: tiles per chunk (bounds temporaries)
 
 
-def _mt_half(g, f, base, pcol, live):
-    """MT of the triangles at lanes [base, base+48) of rows g (n, rows,
-    128) against feature rows f (n, 12, 256): -> (tt, u, v, prim), each
-    (n, rows, 256), tt = BVH_FAR where there is no hit. Separate
-    multiplies and adds in lane order, as kernel B rounds them."""
+def _signed_terms(g, f, base):
+    """det, u', v', t' of the triangles at lanes [base, base+48) of rows g
+    (n, rows, >=48) against feature rows f (n, 12, 256), sign-flipped so
+    det >= 0: -> (ad, us, vs, ts, hit), each (n, rows, 256). Separate
+    multiplies and adds in lane order, as kernels B and C round them
+    (csrc/common.cuh signed_terms)."""
     acc = []
     for q in range(4):
         a = torch.zeros((g.shape[0], g.shape[1], f.shape[2]),
@@ -413,6 +486,23 @@ def _mt_half(g, f, base, pcol, live):
     vs = vp * s
     ts = tp * s
     hit = (us >= 0) & (vs >= 0) & (us + vs <= ad) & (ts > 0) & (ad > 0)
+    return ad, us, vs, ts, hit
+
+
+def _features(o_t, d_t):
+    """(T, 12, 256) ray features [d, o x d, o, 1, 0, 0] of centered
+    origins and directions (T, 3, 256)."""
+    ones = torch.ones_like(o_t[:, :1])
+    zeros = torch.zeros_like(ones)
+    return torch.cat([d_t, cross(o_t, d_t, dim=1), o_t, ones, zeros, zeros],
+                     dim=1)
+
+
+def _mt_half(g, f, base, pcol, live):
+    """MT of the triangles at lanes [base, base+48) of rows g (n, rows,
+    128) against feature rows f (n, 12, 256): -> (tt, u, v, prim), each
+    (n, rows, 256), tt = BVH_FAR where there is no hit."""
+    ad, us, vs, ts, hit = _signed_terms(g, f, base)
     inv_ad = 1.0 / torch.where(ad > 0, ad, 1.0)
     tt = torch.where(hit & live[..., None], ts * inv_ad, BVH_FAR)
     prim = g[:, :, pcol].contiguous().view(torch.int32)[..., None]
@@ -549,13 +639,90 @@ def mt_resolve_fused(offs, counts, lbg, tmax, o_t, d_t, gtab_flat,
     tmax = tmax.reshape(T).contiguous()
     if t0 is None:
         t0 = tmax[:, None].expand(T, TILE)
-    ones = torch.ones((T, 1, TILE), dtype=torch.float32, device=o_t.device)
-    ff = torch.cat([d_t, cross(o_t, d_t, dim=1), o_t, ones,
-                    torch.zeros_like(ones), torch.zeros_like(ones)], dim=1)
     return mt_fused(offs.contiguous(), counts.to(torch.int32).contiguous(),
-                    lbg.reshape(T, -1).contiguous(), tmax, ff.contiguous(),
-                    t0.contiguous(), gtab_flat, k_cap, tri_blk, rps, pack,
-                    any_hit)
+                    lbg.reshape(T, -1).contiguous(), tmax,
+                    _features(o_t, d_t).contiguous(), t0.contiguous(),
+                    gtab_flat, k_cap, tri_blk, rps, pack, any_hit)
+
+
+# --------------------------------------------------------------------------
+# kernel C: Möller–Trumbore over pre-gathered rows (the fused=False path)
+# --------------------------------------------------------------------------
+
+def _mt_plain(o_t, d_t, geom, lbg, tmax):
+    """Plain twin of kernel C (≙ JAX _mt_kernel). o_t/d_t (T, 3, 256)
+    centered origins / directions; geom (T, K4, 48) f32 triangle rows in
+    list order; lbg (T, 1, K4/128) f32 block gates; tmax (T, 1, 1) f32
+    initial t. Per tile, 128-row blocks run while the block's gate is <=
+    the tile's (NaN-propagating) max best t; within a block the first
+    row of the minimum wins, across blocks only a strictly smaller t.
+    Returns (t (T, 256) f32, idx (T, 256) i32 row of the winner)."""
+    T, K4 = geom.shape[:2]
+    nb = K4 // TRI_BLK
+    dev = geom.device
+    best_t = tmax.reshape(T, 1).expand(T, TILE).clone()
+    best_i = torch.zeros((T, TILE), dtype=torch.int32, device=dev)
+    f_all = _features(o_t, d_t)
+    for c0 in range(0, T, _MT_TILES):
+        c1 = min(T, c0 + _MT_TILES)
+        active = torch.ones(c1 - c0, dtype=torch.bool, device=dev)
+        for blk in range(nb):
+            t_far = best_t[c0:c1].amax(dim=1)
+            active &= lbg[c0:c1, 0, blk] <= t_far
+            if not bool(active.any()):
+                break
+            ta = torch.nonzero(active)[:, 0] + c0
+            g = geom[ta, blk * TRI_BLK:(blk + 1) * TRI_BLK]   # (n, 128, 48)
+            ad, _, _, ts, hit = _signed_terms(g, f_all[ta], 0)
+            tt = torch.where(hit, ts / torch.where(ad > 0, ad, 1.0), BVH_FAR)
+            m, am = tt.min(dim=1)                             # first argmin
+            better = m < best_t[ta]
+            best_t[ta] = torch.where(better, m, best_t[ta])
+            best_i[ta] = torch.where(better, (blk * TRI_BLK + am).to(
+                torch.int32), best_i[ta])
+    return best_t, best_i
+
+
+def _mt_cuda(o_t, d_t, geom, lbg, tmax):
+    """Kernel C launch (csrc/mt_gathered.cu); same contract as the plain
+    twin."""
+    T, K4 = geom.shape[:2]
+    nb = K4 // TRI_BLK
+    _check("mt_resolve o_t", o_t, torch.float32, (T, 3, TILE))
+    _check("mt_resolve d_t", d_t, torch.float32, (T, 3, TILE))
+    _check("mt_resolve geom", geom, torch.float32, (T, K4, 48))
+    _check("mt_resolve lbg", lbg, torch.float32, (T, 1, nb))
+    _check("mt_resolve tmax", tmax, torch.float32, (T, 1, 1))
+    if geom.data_ptr() % 16:
+        raise ValueError("mt_resolve: geom must be 16-byte aligned")
+    t = torch.empty((T, TILE), dtype=torch.float32, device=geom.device)
+    idx = torch.empty((T, TILE), dtype=torch.int32, device=geom.device)
+    if T == 0:
+        return t, idx
+    lib = _build.kernels()
+    stream = torch.cuda.current_stream(geom.device).cuda_stream
+    err = lib.tbvh_mt_gathered(o_t.data_ptr(), d_t.data_ptr(),
+                               geom.data_ptr(), lbg.data_ptr(),
+                               tmax.data_ptr(), t.data_ptr(), idx.data_ptr(),
+                               T, K4, nb, stream)
+    _build.check(err, "tbvh_mt_gathered")
+    LAUNCHES["mt_gathered"] += 1
+    return t, idx
+
+
+def mt_resolve(o_t, d_t, geom, lbg, tmax):
+    """≙ JAX mt_resolve: kernel C on CUDA tensors, its plain twin on CPU
+    tensors. geom (T, K4, 48) G rows in near-to-far order (zero rows
+    never hit); lbg (T, 1, K4/128) per-block gates in ray-t units; tmax
+    (T, 1, 1). -> (t (T, 256), idx (T, 256))."""
+    K4 = geom.shape[1]
+    if K4 == 0 or K4 % TRI_BLK or lbg.shape[-1] != K4 // TRI_BLK:
+        raise ValueError(f"mt_resolve: K4 ({K4}) must be a positive "
+                         f"multiple of {TRI_BLK} with one gate per block "
+                         f"(got {lbg.shape[-1]})")
+    if _on_cuda("mt_resolve", o_t, d_t, geom, lbg, tmax):
+        return _mt_cuda(o_t, d_t, geom, lbg, tmax)
+    return _mt_plain(o_t, d_t, geom, lbg, tmax)
 
 
 # --------------------------------------------------------------------------
@@ -601,38 +768,83 @@ def _decode_keys(keys, leaf_bits: int = _LEAF_BITS):
     return lb, keys & ((1 << leaf_bits) - 1)
 
 
-def _check_modes(retrace, fused=True, sort=False):
-    if not fused:
-        raise NotImplementedError(
-            "fused=False (the gathered-layout kernel C) is not ported yet "
-            "(ROADMAP queue 1 item 5b, queue 2 kernel C)")
-    if sort:
-        raise NotImplementedError(
-            "sort=True (full key sort) is not ported yet (ROADMAP queue 1, "
-            "item 5e)")
-    if retrace not in ("packet", False):
-        raise NotImplementedError(
-            f"retrace={retrace!r}: the wavefront retrace is not ported yet "
-            "(ROADMAP queue 1, item 5a)")
+_RETRACE_MODES = (True, False, "wavefront", "packet")
+
+
+def _check_retrace(retrace):
+    if retrace not in _RETRACE_MODES:
+        raise ValueError(f"retrace must be one of {_RETRACE_MODES}, got "
+                         f"{retrace!r}")
+
+
+def _finish(bvh8: BVH8, rays: Rays, best_t, best_pk):
+    """≙ JAX _finish with kuv=None: (prim, u, v) of each ray's winning
+    packed leafrow*4+lane, u/v by re-intersecting the winner. best_t
+    (T, 256), BVH_FAR on a miss."""
+    R = rays.o.shape[0]
+    ok = best_t < BVH_FAR
+    wl = torch.where(ok, best_pk >> 2, 0).long().reshape(-1)
+    wk = torch.where(ok, best_pk & 3, 0).long().reshape(-1)
+    okf = ok.reshape(-1)
+    v0, e1, e2 = tri_edges(bvh8.leaf_tris[wl, wk])
+    _, _, uu, vv = moller_trumbore(
+        rays.o, rays.d, v0, e1, e2,
+        torch.full((R,), BVH_FAR, dtype=torch.float32, device=rays.o.device))
+    return Hits(
+        t=torch.where(okf, best_t.reshape(-1), BVH_FAR),
+        u=torch.where(okf, uu, 0.0),
+        v=torch.where(okf, vv, 0.0),
+        prim=torch.where(okf, bvh8.leaf_prim[wl, wk], -1),
+        inst=torch.full((R,), -1, dtype=torch.int32, device=rays.o.device),
+    )
+
+
+def _merge(ov_ray, new: Hits, old: Hits) -> Hits:
+    """new on the rays of overflowed tiles, old elsewhere."""
+    return Hits(t=torch.where(ov_ray, new.t, old.t),
+                u=torch.where(ov_ray, new.u, old.u),
+                v=torch.where(ov_ray, new.v, old.v),
+                prim=torch.where(ov_ray, new.prim, old.prim),
+                inst=old.inst)
 
 
 def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
                        max_leaves: int = 256, t_max=BVH_FAR,
-                       retrace="packet", sort: bool = False,
-                       fused: bool = True, max_blocks: int = 128,
-                       any_hit: bool = False, tri_blk: int = 256,
+                       retrace=True, wf_cap_factor: int = 8,
+                       sort: bool = False, fused: bool = True,
+                       max_blocks: int = 128, any_hit: bool = False,
+                       tri_blk: int = 256, return_counts: bool = False,
                        retrace_ml: int = 0, retrace_blocks: int = 0,
                        span_mult: int = 1):
-    """Packet trace v2 (≙ JAX intersect_packets2, fused path). Rays are
-    (T*256,) grouped into tiles sharing an origin box. Returns (Hits,
-    (T,) overflow mask).
+    """Packet trace v2 (≙ JAX intersect_packets2). Rays are (T*256,)
+    grouped into tiles sharing an origin box; t_max scalar or (R,).
+    Returns (Hits, (T,) overflow mask), plus the raw per-tile cull counts
+    with return_counts (segments; k_cap+1 flags a worklist overflow).
 
-    retrace: "packet" re-traces overflowed tiles in an escalated second
-    pass (retrace_ml keys, default 4*max_leaves; retrace_blocks worklist
-    depth) with t_max = 0 on every other tile, and the mask then flags
-    only RESIDUAL overflow; False flags the approximate tiles.
-    span_mult: each cull key covers span_mult segments."""
-    _check_modes(retrace, fused, sort)
+    retrace, for tiles whose cull survivors exceeded the max_leaves
+    budget (their first-pass hits may miss geometry):
+      * True / "wavefront": re-trace them with the wavefront engine
+        (frontier wf_cap_factor pairs per ray) with t_max = 0 on every
+        other ray; the mask then flags only tiles whose wavefront pass
+        itself overflowed;
+      * "packet": an escalated second packet pass (retrace_ml keys,
+        default 4*max_leaves; retrace_blocks worklist depth); the mask
+        then flags only tiles that overflow that budget too;
+      * False: no retrace; the mask flags the approximate tiles.
+    Either retrace runs only when some tile overflowed (one host sync).
+
+    sort: full per-tile key sort (gates from every kpb-th key) instead of
+    the near-to-far block order. fused=False gathers the triangle rows
+    into (T, K4, 48) and resolves them with kernel C (mt_resolve); it
+    needs span_mult = 1 and max_leaves a multiple of 32 (whole 128-row
+    blocks). span_mult: each cull key covers span_mult segments."""
+    _check_retrace(retrace)
+    if aux.omap_s:
+        raise NotImplementedError(
+            "opacity micromaps are not ported yet (ROADMAP queue 1, item "
+            "5c)")
+    if not fused and span_mult != 1:
+        raise ValueError("fused=False needs span_mult == 1")
     K = max_leaves
     if K % (SPAN * span_mult) or K < SPAN * span_mult:
         raise ValueError("max_leaves must be a multiple of 4*span_mult")
@@ -641,6 +853,12 @@ def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
     kpb = max(1, tri_blk // rps)
     while Kk % kpb:
         kpb //= 2
+    if not fused:
+        # kernel C's blocks are TRI_BLK rows: one gate per _KPB keys
+        kpb = min(kpb, _KPB)
+        if kpb != _KPB:
+            raise ValueError(f"fused=False needs max_leaves a multiple of "
+                             f"{SPAN * _KPB} and tri_blk >= {TRI_BLK}")
     tb_eff = kpb * rps
     R = rays.o.shape[0]
     if R % TILE:
@@ -660,78 +878,129 @@ def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
                               leaf_bits=leaf_bits, span_mult=span_mult)
     overflow = counts > Kk
 
-    # near-to-far super-block order: sort each tile's Kk/kpb blocks by
-    # their least entry distance, so the kernel's gate early exit is
-    # correct mid-list
     nbk = Kk // kpb
-    lb0, _ = _decode_keys(keys, leaf_bits)
-    lbmin = torch.where(keys != _I32MAX, lb0, BVH_FAR).reshape(
-        T, nbk, kpb).amin(dim=2)
-    order = torch.argsort(lbmin, dim=1, stable=True)
-    keys_s = torch.take_along_dim(keys.reshape(T, nbk, kpb),
-                                  order[..., None], dim=1).reshape(T, Kk)
+    keys_s = keys
+    if sort:
+        # near-to-far order of every key: mid-list early exit
+        keys_s = torch.sort(keys, dim=1).values
+    elif fused:
+        # near-to-far super-block order: sort each tile's Kk/kpb blocks by
+        # their least entry distance, so the kernel's gate early exit is
+        # correct mid-list
+        lb0, _ = _decode_keys(keys, leaf_bits)
+        lbmin = torch.where(keys != _I32MAX, lb0, BVH_FAR).reshape(
+            T, nbk, kpb).amin(dim=2)
+        order = torch.argsort(lbmin, dim=1, stable=True)
+        keys_s = torch.take_along_dim(keys.reshape(T, nbk, kpb),
+                                      order[..., None], dim=1).reshape(T, Kk)
     lb, segs = _decode_keys(keys_s, leaf_bits)
     live = keys_s != _I32MAX
+    lrow = torch.where(live, segs, 0)
 
     # gates in ray-t units: entry distance / max |d| over the tile; dead
     # blocks gate at +inf, non-finite gates degrade to 0 (always pass)
     maxd = torch.clamp(dlen.amax(dim=1), min=1e-20)
     blk_live = live.reshape(T, nbk, kpb).any(dim=2)
-    gate = (torch.where(live, lb, BVH_FAR).reshape(T, nbk, kpb).amin(dim=2)
-            / maxd[:, None])
+    lb_live = torch.where(live, lb, BVH_FAR)
+    if sort:
+        gate = lb_live[:, ::kpb] / maxd[:, None]
+    elif fused:
+        gate = lb_live.reshape(T, nbk, kpb).amin(dim=2) / maxd[:, None]
+    else:
+        gate = torch.zeros((T, nbk), dtype=torch.float32, device=o.device)
     gate = torch.where(torch.isfinite(gate), gate, 0.0)
     lbg = torch.where(blk_live, gate, float("inf")).reshape(T, 1, nbk)
 
     o_c = (o - aux.center).permute(0, 2, 1)              # (T, 3, 256)
     d_t = d.permute(0, 2, 1)
+    # the kernels' per-tile initial bound is the tile max; per-ray bounds
+    # are enforced by the comparison against tmax_r below
     tmax = tmax_rt.amax(dim=1).reshape(T, 1)
     tmax_r = tmax_rt.reshape(R)
-    # the block reorder scatters live keys out of prefix order: count
-    # covers every live block (dead keys inside are masked or hit the
-    # zero sentinel segment)
-    n_live_blk = blk_live.sum(dim=1, dtype=torch.int32)
-    cnt_k = torch.where(torch.clamp(counts, max=Kk) > 0, n_live_blk * kpb, 0)
-    # pre-decoded row offsets; dead keys -> the all-zero sentinel segment
-    sent_seg = -(-aux.n_segs // span_mult)
-    offs = (torch.where(live, torch.clamp(segs, max=sent_seg), sent_seg)
-            * rps).to(torch.int32)
-    # any-hit keeps the scalar cutoff init: its early stop compares t_far
-    # against the cutoff
-    best_t, _, ku, kv, kp = mt_resolve_fused(
-        offs, cnt_k, lbg, tmax, o_c, d_t, aux.gtab_pad, k_cap=Kk,
-        omap_s=aux.omap_s, any_hit=any_hit, tri_blk=tb_eff,
-        t0=None if any_hit else t0_rt, pack=aux.pack, rps=rps)
-    # misses settle at their exit-t init with prim = -1: prim, not t, is
-    # the miss signal
-    okf = ((kp >= 0) & (best_t < tmax_r.reshape(T, TILE))).reshape(-1)
-    hits = Hits(
-        t=torch.where(okf, best_t.reshape(-1), BVH_FAR),
-        u=torch.where(okf, ku.reshape(-1), 0.0),
-        v=torch.where(okf, kv.reshape(-1), 0.0),
-        prim=torch.where(okf, kp.reshape(-1), -1),
-        inst=torch.full((R,), -1, dtype=torch.int32, device=o.device),
-    )
+    if fused:
+        # the block reorder scatters live keys out of prefix order: count
+        # covers every live block (dead keys inside are masked or hit the
+        # zero sentinel segment)
+        n_live_blk = blk_live.sum(dim=1, dtype=torch.int32)
+        cnt_k = torch.where(torch.clamp(counts, max=Kk) > 0,
+                            n_live_blk * kpb, 0)
+        # pre-decoded row offsets; dead keys -> the all-zero sentinel
+        # segment
+        sent_seg = -(-aux.n_segs // span_mult)
+        offs = (torch.where(live, torch.clamp(segs, max=sent_seg), sent_seg)
+                * rps).to(torch.int32)
+        # any-hit keeps the scalar cutoff init: its early stop compares
+        # t_far against the cutoff
+        best_t, _, ku, kv, kp = mt_resolve_fused(
+            offs, cnt_k, lbg, tmax, o_c, d_t, aux.gtab_pad, k_cap=Kk,
+            omap_s=aux.omap_s, any_hit=any_hit, tri_blk=tb_eff,
+            t0=None if any_hit else t0_rt, pack=aux.pack, rps=rps)
+        # misses settle at their exit-t init with prim = -1: prim, not t,
+        # is the miss signal
+        okf = ((kp >= 0) & (best_t < tmax_r.reshape(T, TILE))).reshape(-1)
+        hits = Hits(
+            t=torch.where(okf, best_t.reshape(-1), BVH_FAR),
+            u=torch.where(okf, ku.reshape(-1), 0.0),
+            v=torch.where(okf, kv.reshape(-1), 0.0),
+            prim=torch.where(okf, kp.reshape(-1), -1),
+            inst=torch.full((R,), -1, dtype=torch.int32, device=o.device),
+        )
+    else:
+        # per-triangle row gather straight into kernel layout (T, K4, 48);
+        # dead entries read the all-zero row past the real triangles
+        # (det = 0 never hits). pack=2 rows hold triangle pairs: their
+        # first 96 lanes reshape to per-triangle 48-lane rows in order.
+        gflat = (aux.gtab_pad[:, :96].reshape(-1, 48) if aux.pack == 2
+                 else aux.gtab_pad[:, :48])
+        zrow = 4 * aux.n_leaf_rows
+        lanes_s = torch.arange(SEG_ROWS, device=o.device)
+        tri_idx = torch.where(
+            live[:, :, None],
+            torch.clamp(lrow[:, :, None] * SEG_ROWS + lanes_s, max=zrow),
+            zrow).reshape(T, Kk * SEG_ROWS)
+        best_t, best_i = mt_resolve(o_c.contiguous(), d_t.contiguous(),
+                                    gflat[tri_idx].contiguous(),
+                                    lbg.contiguous(),
+                                    tmax.reshape(T, 1, 1).contiguous())
+        # row in the list -> (segment, leaf in segment, lane)
+        pos = (best_i // SEG_ROWS).long()
+        within = best_i % SEG_ROWS
+        seg = torch.gather(lrow, 1, pos)
+        row = torch.clamp(seg * SPAN + (within >> 2),
+                          max=bvh8.leaf_prim.shape[0] - 1)
+        best_t = torch.where(best_t < tmax_r.reshape(T, TILE), best_t,
+                             BVH_FAR)
+        hits = _finish(bvh8, rays, best_t, row * 4 + (within & 3))
 
-    if retrace == "packet" and bool(overflow.any()):
+    if retrace and bool(overflow.any()):
         ov_ray = torch.repeat_interleave(overflow, TILE)
-        h2, ov2 = intersect_packets2(
-            bvh8, aux, rays, max_leaves=retrace_ml or 4 * max_leaves,
-            t_max=torch.where(ov_ray, tmax_r, 0.0), retrace=False,
-            max_blocks=retrace_blocks or max_blocks, any_hit=any_hit,
-            tri_blk=tri_blk, span_mult=span_mult)
-        hits = Hits(t=torch.where(ov_ray, h2.t, hits.t),
-                    u=torch.where(ov_ray, h2.u, hits.u),
-                    v=torch.where(ov_ray, h2.v, hits.v),
-                    prim=torch.where(ov_ray, h2.prim, hits.prim),
-                    inst=hits.inst)
-        # only tiles whose escalated budget also overflowed stay flagged
+        if retrace == "packet":
+            h2, ov2 = intersect_packets2(
+                bvh8, aux, rays, max_leaves=retrace_ml or 4 * max_leaves,
+                t_max=torch.where(ov_ray, tmax_r, 0.0), retrace=False,
+                sort=sort, fused=fused,
+                max_blocks=retrace_blocks or max_blocks, any_hit=any_hit,
+                tri_blk=tri_blk, span_mult=span_mult)
+        else:
+            from tinybvh_tpu_torch.traverse.wavefront import (
+                intersect_wavefront,
+            )
+
+            h2, ov2 = intersect_wavefront(
+                bvh8, rays, t_max=torch.where(ov_ray, tmax_r, 0.0),
+                cap_factor=wf_cap_factor)
+        hits = _merge(ov_ray, h2, hits)
+        # only tiles that may still be inexact stay flagged
         overflow = overflow & ov2
+    if return_counts:
+        return hits, overflow, counts
     return hits, overflow
 
 
 def intersect_packets2_sorted(bvh8: BVH8, aux: PacketAux, rays: Rays,
                               scene_lo, scene_hi, max_leaves: int = 256,
-                              retrace="packet", any_hit: bool = False,
+                              retrace=True, wf_cap_factor: int = 8,
+                              any_hit: bool = False,
                               t_max_static: float = BVH_FAR,
                               max_blocks: int = 128, retrace_ml: int = 0,
                               retrace_blocks: int = 0, tri_blk: int = 256,
@@ -741,34 +1010,61 @@ def intersect_packets2_sorted(bvh8: BVH8, aux: PacketAux, rays: Rays,
     order, inverse = sort_rays_coherent(rays.o, rays.d, scene_lo, scene_hi)
     hits, overflow = intersect_packets2(
         bvh8, aux, rays.take(order), max_leaves=max_leaves,
-        retrace=retrace, any_hit=any_hit, t_max=t_max_static,
-        max_blocks=max_blocks, retrace_ml=retrace_ml,
+        retrace=retrace, wf_cap_factor=wf_cap_factor, any_hit=any_hit,
+        t_max=t_max_static, max_blocks=max_blocks, retrace_ml=retrace_ml,
         retrace_blocks=retrace_blocks, tri_blk=tri_blk, span_mult=span_mult)
     return hits.take(inverse), torch.repeat_interleave(overflow,
                                                        TILE)[inverse]
 
 
+def _occluded(bvh8: BVH8, aux: PacketAux, rays: Rays, cutoff: float,
+              retrace=True, wf_cap_factor: int = 8, **kw):
+    """Any hit in (0, cutoff) of rays in tile order (≙ the body of JAX
+    is_occluded_packets2): the packet pass with the packet retrace, or
+    none, then with retrace True / "wavefront" the any-hit wavefront on
+    the overflowed tiles. kw as intersect_packets2. Returns ((R,)
+    occluded, (T,) overflow)."""
+    _check_retrace(retrace)
+    hits, overflow = intersect_packets2(
+        bvh8, aux, rays, t_max=cutoff, any_hit=True,
+        retrace="packet" if retrace == "packet" else False, **kw)
+    occ = (hits.prim >= 0) & (hits.t < cutoff)
+    if retrace and retrace != "packet" and bool(overflow.any()):
+        from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
+
+        ov_ray = torch.repeat_interleave(overflow, TILE)
+        _, wf_occ, wf_ovf = intersect_wavefront(
+            bvh8, rays, t_max=torch.where(ov_ray, cutoff, 0.0),
+            cap_factor=wf_cap_factor, any_hit=True)
+        occ = torch.where(ov_ray, wf_occ, occ)
+        overflow = overflow & wf_ovf
+    return occ, overflow
+
+
 def is_occluded_packets2(bvh8: BVH8, aux: PacketAux, origin, points,
                          cutoff: float = 1.0 - 1e-3, max_leaves: int = 256,
-                         retrace="packet", max_blocks: int = 128,
-                         retrace_ml: int = 0, retrace_blocks: int = 0,
-                         tri_blk: int = 256, span_mult: int = 1):
+                         retrace=True, wf_cap_factor: int = 8,
+                         max_blocks: int = 128, retrace_ml: int = 0,
+                         retrace_blocks: int = 0, tri_blk: int = 256,
+                         span_mult: int = 1):
     """Any-hit occlusion of segments origin -> points sharing ONE origin,
     points in tile order (≙ IsOccluded, tiny_bvh.h:3382-3453). t is the
-    segment fraction. Returns ((R,) occluded, (T,) overflow)."""
+    segment fraction. Returns ((R,) occluded, (T,) overflow); retrace
+    modes as in intersect_packets2 (True / "wavefront": the any-hit
+    wavefront)."""
     d = points - origin[None, :]
     rays = make_rays(origin[None, :].expand_as(d), d)
-    hits, overflow = intersect_packets2(
-        bvh8, aux, rays, max_leaves=max_leaves, t_max=cutoff,
-        retrace=retrace, max_blocks=max_blocks, any_hit=True,
-        retrace_ml=retrace_ml, retrace_blocks=retrace_blocks,
-        tri_blk=tri_blk, span_mult=span_mult)
-    return (hits.prim >= 0) & (hits.t < cutoff), overflow
+    return _occluded(bvh8, aux, rays, cutoff, retrace=retrace,
+                     wf_cap_factor=wf_cap_factor, max_leaves=max_leaves,
+                     max_blocks=max_blocks, retrace_ml=retrace_ml,
+                     retrace_blocks=retrace_blocks, tri_blk=tri_blk,
+                     span_mult=span_mult)
 
 
 def is_occluded_packets2_sorted(bvh8: BVH8, aux: PacketAux, origin, points,
                                 cutoff: float = 1.0 - 1e-3,
-                                max_leaves: int = 256, retrace="packet",
+                                max_leaves: int = 256, retrace=True,
+                                wf_cap_factor: int = 8,
                                 max_blocks: int = 128, retrace_ml: int = 0,
                                 retrace_blocks: int = 0, tri_blk: int = 256,
                                 span_mult: int = 1):
@@ -778,22 +1074,20 @@ def is_occluded_packets2_sorted(bvh8: BVH8, aux: PacketAux, origin, points,
     d = points - origin[None, :]
     return occluded_direction_sorted(
         bvh8, aux, make_rays(origin[None, :].expand_as(d), d), cutoff,
-        max_leaves=max_leaves, retrace=retrace, max_blocks=max_blocks,
-        retrace_ml=retrace_ml, retrace_blocks=retrace_blocks,
-        tri_blk=tri_blk, span_mult=span_mult)
+        max_leaves=max_leaves, retrace=retrace, wf_cap_factor=wf_cap_factor,
+        max_blocks=max_blocks, retrace_ml=retrace_ml,
+        retrace_blocks=retrace_blocks, tri_blk=tri_blk, span_mult=span_mult)
 
 
 def occluded_direction_sorted(bvh8: BVH8, aux: PacketAux, rays: Rays,
                               cutoff: float, **kw):
     """Any hit in (0, cutoff) for rays sharing one origin, bundled by
     quantized-direction morton order. Returns ((R,) occluded, (R,)
-    overflow) in input order; kw as intersect_packets2."""
+    overflow) in input order; kw as is_occluded_packets2."""
     d = rays.d
     dn = d / torch.clamp(norm(d, keepdim=True), min=1e-20)
     q = torch.clamp(((dn + 1.0) * 0.5 * 1024.0).to(torch.int32), 0, 1023)
     order = torch.argsort(_morton3(q), stable=True)
     inverse = inverse_permutation(order)
-    hits, overflow = intersect_packets2(bvh8, aux, rays.take(order),
-                                        t_max=cutoff, any_hit=True, **kw)
-    occ = (hits.prim >= 0) & (hits.t < cutoff)
+    occ, overflow = _occluded(bvh8, aux, rays.take(order), cutoff, **kw)
     return occ[inverse], torch.repeat_interleave(overflow, TILE)[inverse]

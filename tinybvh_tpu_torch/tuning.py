@@ -18,18 +18,27 @@ import torch
 class Tuning:
     max_leaves: int      # per-tile leaf budget of the first cull pass
     max_blocks: int      # cull worklist depth per tile group
-    # leaf budget of the escalated packet retrace: the API raises on any
-    # residual overflow (the exact wavefront retrace is not ported), so it
-    # is sized to cover the widest tiles of the coherence sort
-    retrace_ml: int
+    wf_cap_factor: int   # wavefront retrace frontier: pairs per ray
     measured: bool = True
 
 
 _TABLES = {
-    "h100": Tuning(max_leaves=512, max_blocks=256, retrace_ml=16384,
+    # wf_cap_factor: the JAX rows' 8 is too small here. Through the API,
+    # the retrace of random_tris(65536) camera rays peaks at 39.45,
+    # 35.33 and 28.49 frontier pairs per ray of the batch at 160x160,
+    # 320x320 and 640x640 (49-75 per retraced ray), and the shadow
+    # retrace of its 4x4 grid at 45.62, so at 8 (or 32) the API would
+    # raise. The port's frontier holds only live pairs: device memory
+    # follows the pairs a retrace holds, ~690 B each (NVIDIA H100 80GB
+    # HBM3, 700.00 W), not the cap. A retrace that filled the cap would
+    # take 64 x 690 B = 44 KB per ray of the batch, so the cap is reached
+    # before the card's 80 GB run out only for batches up to ~1.8M rays;
+    # a larger batch can end in torch.OutOfMemoryError instead of the
+    # API's RuntimeError.
+    "h100": Tuning(max_leaves=512, max_blocks=256, wf_cap_factor=64,
                    measured=False),
     # CPU (the kernels' plain versions): small budgets keep tests fast
-    "cpu": Tuning(max_leaves=256, max_blocks=128, retrace_ml=4096),
+    "cpu": Tuning(max_leaves=256, max_blocks=128, wf_cap_factor=8),
 }
 
 _warned: set[str] = set()
