@@ -6,7 +6,7 @@
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
   2. build: the CUDA kernels (csrc/*.cu, nvcc) and the native host
-     builder (tinybvh_tpu/native/builder.c, cc), from the checkout;
+     builder (tinybvh_tpu_torch/native/builder.c, cc), from the checkout;
   3. kernels A and B against their plain PyTorch twins on the card, at
      the shapes of the main path: random_tris(65536, seed=0), 640x640
      camera rays in 16x16 tile order;
@@ -38,9 +38,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      t_max (wavefront engine, with its lockstep fallback), engine=
      "lockstep", and 1000 rays on a sphere (the wavefront's own hits),
      each against the oracle on every ray;
-then a JSON line of the four kernels (launches counted on each kernel's
-own path: A and B in phase 4, G in phase 7, C in phase 8), and as the
-last line {"ok": true, "device": {...}}.
+ 11. the v1 packet engine (traverse/packet.py intersect_packets) on the
+     same rays at 512 leaves, pair cap 64 per tile, chunk 32, in its four
+     modes (default frontier, phase1_flat, kernel D, kernels F + D), each
+     with zero overflowed tiles and the oracle gates, prims equal across
+     modes; kernels D (v2 and v3 bodies), E and F against their twins bit
+     for bit (F also at 64 leaves, where tiles overflow); the shadow
+     segments of phase 4's light through is_occluded_packets (kernel D,
+     2048 leaves, pair cap 512: see V1_SHADOW)
+     and the rays, shuffled inside each tile, through
+     intersect_packets_sorted;
+then a JSON line of the eight kernels (launches counted on each kernel's
+own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
+11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
+drives on that trace's inputs, since no path of the package runs them),
+each with its time, its plain twin's, and its bound (BOUND_RATES), and
+as the last line {"ok": true, "device": {...}}.
 
 Precision: TF32 stays off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False); the kernels use no tensor cores.
@@ -59,10 +72,40 @@ import numpy as np
 REPLACES = {"cull": "tinybvh_tpu/traverse/packet2.py:488",
             "mt_fused": "tinybvh_tpu/traverse/packet2.py:858",
             "mt_gathered": "tinybvh_tpu/traverse/packet2.py:756",
-            "cull_blocks": "tinybvh_tpu/traverse/packet2.py:455"}
+            "cull_blocks": "tinybvh_tpu/traverse/packet2.py:455",
+            "leaf_resolve_v2": "tinybvh_tpu/traverse/pallas_leaf.py:92",
+            "leaf_resolve_v3": "tinybvh_tpu/traverse/pallas_leaf.py:151",
+            "leaf_resolve": "tinybvh_tpu/traverse/pallas_leaf.py:34",
+            "frustum_walk": "tinybvh_tpu/traverse/pallas_frustum.py:40"}
 SOURCES = {"cull": "cull.cu", "mt_fused": "mt_fused.cu",
-           "mt_gathered": "mt_gathered.cu", "cull_blocks": "cull_blocks.cu"}
+           "mt_gathered": "mt_gathered.cu", "cull_blocks": "cull_blocks.cu",
+           "leaf_resolve_v2": "leaf_resolve.cu",
+           "leaf_resolve_v3": "leaf_resolve.cu",
+           "leaf_resolve": "leaf_resolve.cu",
+           "frustum_walk": "frustum_walk.cu"}
 ORACLE_RAYS = 2048
+
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# memory rate and its fp32 operations over the fp32 rate outside the
+# tensor cores (NVIDIA's H100 SXM data sheet, at the full 700 W).
+BOUND_RATES = {"bytes_per_s": 3.35e12, "fp32_per_s": 67e12}
+# fp32 operations per unit of work, counted from each kernel's source:
+#   cull: per (segment, tile) test: 4 planes x 3 axes x (2 mul + 2 add)
+#     + 4 compares, the reach cap's 3 x (2 sub, max, clamp, mul, add) +
+#     sqrt + compare;
+#   cull_blocks: per (block, tile) test: the 4-plane test alone;
+#   mt_fused: per (triangle, ray): four 12-lane dots (96), sign flip (5),
+#     hit test (6), divide and select (2), u and v (2), argmin (1);
+#   mt_gathered: per (triangle row, ray): the same without u and v;
+#   leaf_resolve*: per (triangle, ray): classic Möller–Trumbore (55:
+#     common.cuh classic_mt) and the argmin compare (1);
+#   frustum_walk: per pop: 8 children x 4 planes x 3 axes x (compare,
+#     select, mul, add) + 32 compares.
+OPS_PER_UNIT = {"cull": 76, "cull_blocks": 52, "mt_fused": 112,
+                "mt_gathered": 110, "leaf_resolve_v2": 56,
+                "leaf_resolve_v3": 56, "leaf_resolve": 56,
+                "frustum_walk": 416}
 
 
 def camera_rays(lo, hi, W=640, H=640):
@@ -182,29 +225,84 @@ def oracle_check(hits_sub, rays_sub, tris, what):
     return agree, ratio
 
 
-def reset_launches():
-    from tinybvh_tpu_torch.traverse import packet2
+def launch_tables():
+    """Every kernel module's launch counters."""
+    from tinybvh_tpu_torch.traverse import frustum_walk, leaf_resolve, packet2
 
-    for k in packet2.LAUNCHES:
-        packet2.LAUNCHES[k] = 0
+    return (packet2.LAUNCHES, leaf_resolve.LAUNCHES, frustum_walk.LAUNCHES)
+
+
+def reset_launches():
+    for table in launch_tables():
+        for k in table:
+            table[k] = 0
 
 
 def read_launches(dev, names, what):
     """The launch counts of `names` since the last reset; on the card each
     must be > 0."""
-    from tinybvh_tpu_torch.traverse import packet2
-
     sync(dev)
-    got = {k: packet2.LAUNCHES[k] for k in names}
+    counts = {k: v for table in launch_tables() for k, v in table.items()}
+    got = {k: counts[k] for k in names}
     if dev.type == "cuda" and min(got.values()) == 0:
         raise AssertionError(f"{what} skipped a kernel: {got}")
     return got
 
 
+def nbytes(xs):
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in xs
+               if isinstance(x, torch.Tensor))
+
+
+def bound(name, args, outs, units):
+    """bound_ms and bound_by of kernel `name` on these arguments: `units`
+    of work (OPS_PER_UNIT), the tensor arguments read once and the
+    outputs written once."""
+    t_bytes = (nbytes(args) + nbytes(outs)) / BOUND_RATES["bytes_per_s"]
+    t_ops = units * OPS_PER_UNIT[name] / BOUND_RATES["fp32_per_s"]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def live_rows(geom, n_run=None):
+    """Rows of a gathered table (T, K, lanes) that are not all zero (dead
+    rows are); with n_run (T,), only among the first n_run rows of each
+    tile."""
+    import torch
+
+    live = (geom != 0).any(dim=-1)
+    if n_run is not None:
+        live &= (torch.arange(geom.shape[1], device=geom.device)
+                 < n_run[:, None])
+    return int(live.sum())
+
+
+def fused_tests(b, n_sb):
+    """(triangle, ray) tests that kernel B's arguments `b` need: the
+    nonzero triangles of the live keys in the super-blocks each tile ran
+    before its gate stopped it (n_sb, from the plain twin), times 256
+    rays."""
+    import torch
+
+    offs, counts, gtab = b[0], b[1], b[6]
+    k_cap, tri_blk, rps, pack = b[7], b[8], b[9], b[10]
+    dev = offs.device
+    keys = torch.minimum(n_sb * (tri_blk // rps),
+                         counts.clamp(max=k_cap).long())
+    run = torch.arange(k_cap, device=dev) < keys[:, None]
+    rows = offs[run].long()[:, None] + torch.arange(rps, device=dev)
+    tris = gtab[:, :48 * pack][rows].reshape(-1, pack, 48)
+    return int((tris != 0).any(dim=-1).sum()) * 256
+
+
 def kernel_line(phase, name, r, gpu_line):
     print(f"phase {phase} kernel {name}: {r['shape']} max_abs_err "
           f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
-          f"{r['plain_ms']:.4f} ms [{gpu_line}]", flush=True)
+          f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}) [{gpu_line}]", flush=True)
 
 
 def phase_kernels(bvh, rays, gpu_line, n_kernel=20, n_plain=3):
@@ -240,12 +338,19 @@ def phase_kernels(bvh, rays, gpu_line, n_kernel=20, n_plain=3):
                        plain_ms=time_ms(lambda: packet2._cull_plain(*a), dev,
                                         n_plain),
                        shape=f"G={a[1].shape[0]} max_blocks={a[1].shape[1]}"
-                             f" k_cap={a[6]}")
+                             f" k_cap={a[6]}",
+                       **bound("cull", a, (k_g, c_g),
+                               int(a[0].sum()) * packet2.LANES
+                               * packet2.TB))
 
     b = rec["mt_fused"][0]
-    kern = packet2._mt_fused_cuda if on_gpu else packet2._mt_fused_plain
+
+    def plain_b(*args):
+        return packet2._mt_fused_plain(*args)[:5]
+
+    kern = packet2._mt_fused_cuda if on_gpu else plain_b
     got = kern(*b)
-    ref = packet2._mt_fused_plain(*b)
+    *ref, n_sb = packet2._mt_fused_plain(*b)
     if not torch.equal(got[4], ref[4]):
         raise AssertionError("mt_fused: prim differs from the plain twin")
     errs = [float((got[i] - ref[i]).abs().max()) for i in (0, 2, 3)]
@@ -254,11 +359,11 @@ def phase_kernels(bvh, rays, gpu_line, n_kernel=20, n_plain=3):
             raise AssertionError(f"mt_fused: output {i} outside {tol}")
     out["mt_fused"] = dict(max_abs_err=max(errs),
                            ms=time_ms(lambda: kern(*b), dev, n_kernel),
-                           plain_ms=time_ms(
-                               lambda: packet2._mt_fused_plain(*b), dev,
-                               n_plain),
+                           plain_ms=time_ms(lambda: plain_b(*b), dev,
+                                            n_plain),
                            shape=f"T={b[0].shape[0]} k_cap={b[7]} "
-                                 f"tri_blk={b[8]} rps={b[9]}")
+                                 f"tri_blk={b[8]} rps={b[9]}",
+                           **bound("mt_fused", b, got, fused_tests(b, n_sb)))
     for name, r in out.items():
         kernel_line(3, name, r, gpu_line)
     return out, a
@@ -473,17 +578,24 @@ def phase_kernels_cg(bvh, rays, cull_args, gpu_line, n_kernel=20,
     finally:
         restore()
     c = rec["mt_resolve"][0]
-    kern = packet2._mt_cuda if on_gpu else packet2._mt_plain
+
+    def plain_c(*args):
+        return packet2._mt_plain(*args)[:2]
+
+    kern = packet2._mt_cuda if on_gpu else plain_c
     t_k, i_k = kern(*c)
-    t_p, i_p = packet2._mt_plain(*c)
+    t_p, i_p, n_blk = packet2._mt_plain(*c)
     if not (torch.equal(i_k, i_p) and torch.equal(t_k, t_p)):
         raise AssertionError("mt_gathered: t or row differs from the plain "
                              "twin")
     out["mt_gathered"] = dict(
         max_abs_err=float((t_k - t_p).abs().max()),
         ms=time_ms(lambda: kern(*c), dev, n_kernel),
-        plain_ms=time_ms(lambda: packet2._mt_plain(*c), dev, n_plain),
-        shape=f"T={c[2].shape[0]} K4={c[2].shape[1]}")
+        plain_ms=time_ms(lambda: plain_c(*c), dev, n_plain),
+        shape=f"T={c[2].shape[0]} K4={c[2].shape[1]}",
+        # live rows of the 128-row blocks each tile ran before its gate
+        **bound("mt_gathered", c, (t_k, i_k),
+                live_rows(c[2], n_blk * packet2.TRI_BLK) * 256))
 
     aux = bvh.packet_aux
     g = (cull_args[2], aux.blk_lo, aux.blk_hi, aux.n_blocks)
@@ -498,7 +610,8 @@ def phase_kernels_cg(bvh, rays, cull_args, gpu_line, n_kernel=20,
         plain_ms=time_ms(lambda: packet2._cull_blocks_plain(*g), dev,
                          n_plain),
         shape=f"G={m_k.shape[0]} nbpad={m_k.shape[2]} "
-              f"n_blocks={aux.n_blocks}")
+              f"n_blocks={aux.n_blocks}",
+        **bound("cull_blocks", g, (m_k,), g[0].shape[0] * aux.n_blocks))
     for name, r in out.items():
         kernel_line(6, name, r, gpu_line)
     return out
@@ -723,6 +836,200 @@ def phase_off_packets(bvh, rays, extent, gpu_line):
           f"oracle on every ray [{gpu_line}]", flush=True)
 
 
+V1 = dict(max_leaves=512, chunk=32, pair_cap_factor=64)
+V1_MODES = (("default", {}), ("phase1_flat", dict(phase1_flat=True)),
+            ("D", dict(leaf_kernel=True)),
+            ("F+D", dict(walk_kernel=True, leaf_kernel=True)))
+V1_PATH = {"D": ("leaf_resolve_v2",),
+           "F+D": ("frustum_walk", "leaf_resolve_v2")}
+# Budgets of the two wrappers on this scene: the shadow bundles from the
+# light to the tile-order hit points, and the re-sorted tiles, are far
+# less coherent than the camera's tiles, and at V1's budgets their pair
+# frontier passes its cap, which flags every tile (phase 11 prints the
+# count at both budgets).
+V1_SHADOW = dict(max_leaves=2048, pair_cap_factor=512)
+V1_SORTED = dict(max_leaves=512, pair_cap_factor=128)
+
+
+def equal_twin(what, got, ref):
+    """Each output of a kernel equals its plain twin's bit for bit;
+    returns the largest absolute difference (0)."""
+    import torch
+
+    for g, r in zip(got, ref):
+        if not torch.equal(g, r):
+            raise AssertionError(f"{what} differs from its plain twin")
+    return max(float((g.double() - r.double()).abs().max()) for g, r in
+               zip(got, ref))
+
+
+def kernel_entry(name, kern, plain, args, units, dev, shape, n_kernel=20,
+                 n_plain=3):
+    """Kernel against its twin on `args` (bit equality), both timed, and
+    the kernel's bound on these arguments."""
+    got = kern(*args)
+    ref = plain(*args)
+    return dict(max_abs_err=equal_twin(name, got, ref),
+                ms=time_ms(lambda: kern(*args), dev, n_kernel),
+                plain_ms=time_ms(lambda: plain(*args), dev, n_plain),
+                shape=shape, **bound(name, args, got, units))
+
+
+def phase_v1(bvh, rays, center, extent, gpu_line):
+    """The v1 packet engine at full size: four modes gated by the oracle
+    and equal to one another, kernels D, E and F against their twins on
+    the arguments of this trace, the shadow and sorted wrappers. Returns
+    (kernel results, launch counts of each kernel on its own path)."""
+    import torch
+    from tinybvh_tpu_torch.core.intersect import brute_force_any
+    from tinybvh_tpu_torch.traverse import frustum_walk as fw
+    from tinybvh_tpu_torch.traverse import leaf_resolve as lr
+    from tinybvh_tpu_torch.traverse import packet as pk
+
+    start = time.perf_counter()
+    dev = rays.o.device
+    on_gpu = dev.type == "cuda"
+    R = rays.o.shape[0]
+    T = R // 256
+    b8 = bvh.bvh8
+    idx = oracle_subset(R, dev)
+    rec, restore = capture(lr, ("leaf_resolve_v2",))
+    rec_f, restore_f = capture(fw, ("collect_tile_leaves_kernel",))
+    hits, rates, launches, parts = {}, [], {}, []
+    try:
+        for mode, kw in V1_MODES:
+            def trace():
+                return pk.intersect_packets(b8, rays, **V1, **kw)
+
+            reset_launches()
+            h, ov = trace()
+            if mode in V1_PATH:
+                got = read_launches(dev, V1_PATH[mode], f"the {mode} trace")
+                launches.setdefault("leaf_resolve_v2",
+                                    got["leaf_resolve_v2"])
+                launches.update({k: v for k, v in got.items()
+                                 if k == "frustum_walk"})
+            n_ovf = int(ov.sum())
+            if n_ovf:
+                raise AssertionError(f"v1 {mode}: {n_ovf} tiles overflow")
+            agree, ratio = oracle_check(h.take(idx), rays.take(idx),
+                                        bvh.tris, f"v1 {mode}")
+            hits[mode] = h
+            rates.append(f"{mode} {R / wall_s(trace, dev) / 1e6:.3f}")
+            parts.append(f"{mode} prim-agree {agree:.5f} checksum "
+                         f"{ratio:.6f}")
+    finally:
+        restore()
+        restore_f()
+    err = max(same_hits(hits[m], hits["default"], f"v1 {m} vs default")
+              for m, _ in V1_MODES[1:])
+
+    # kernel D (both bodies) on the D trace's rows, E on its leaf lists
+    d_args = rec["leaf_resolve_v2"][0]
+    k_d = (lr._resolve_v2_cuda if on_gpu else lr._resolve_v2_plain)
+    d_units = live_rows(d_args[2]) * 256
+    d_shape = f"T={T} K4={d_args[2].shape[1]}"
+    out = {}
+    for name, wide in (("leaf_resolve_v2", False), ("leaf_resolve_v3", True)):
+        out[name] = kernel_entry(
+            name, lambda *a, w=wide: k_d(*a, wide=w),
+            lambda *a, w=wide: lr._resolve_v2_plain(*a, wide=w), d_args,
+            d_units, dev, d_shape)
+    o3 = rays.o.reshape(T, 256, 3)
+    leaves, _ = pk.collect_tile_leaves(b8, o3.amin(1),
+                                       rays.d.reshape(T, 256, 3),
+                                       V1["max_leaves"], V1["pair_cap_factor"],
+                                       tile_ohi=o3.amax(1))
+    rows = torch.clamp(leaves, 0, b8.leaf_tris.shape[0] - 1)
+    live = (leaves != 2**31 - 1).to(torch.int32)
+    e_args = (d_args[0], d_args[1],
+              lr.pack_leaf_geom(b8)[rows.long()].contiguous(), live, rows)
+    # no path of the package runs v3 or E: each is driven once on its own
+    reset_launches()
+    t_v3, _ = lr.leaf_resolve_v2(*d_args, wide=True)
+    t_e, _ = lr.leaf_resolve(*e_args)
+    launches.update(read_launches(dev, ("leaf_resolve_v3", "leaf_resolve"),
+                                  "the v3 and E drives"))
+    t_v2, _ = lr.leaf_resolve_v2(*d_args)
+    if not (torch.equal(t_e, t_v2) and torch.equal(t_v3, t_v2)):
+        raise AssertionError("kernels E, D-v3 and D-v2 disagree on t")
+    k_e = lr._resolve_cuda if on_gpu else lr._resolve_plain
+    out["leaf_resolve"] = kernel_entry(
+        "leaf_resolve", k_e, lr._resolve_plain, e_args,
+        int(live.sum()) * 4 * 256, dev, f"T={T} K={leaves.shape[1]}")
+
+    # kernel F on the F + D trace's planes, at 512 leaves and at 64
+    f_args = rec_f["collect_tile_leaves_kernel"][0]
+
+    def plain_f(*args):
+        return fw._walk_plain(*args)[:2]
+
+    k_f = fw._walk_cuda if on_gpu else plain_f
+    pops = int(fw._walk_plain(*f_args)[2].sum())
+    out["frustum_walk"] = kernel_entry(
+        "frustum_walk", k_f, plain_f, f_args, pops, dev,
+        f"T={T} M={f_args[0].shape[0]} K={f_args[4]} ({pops} pops)")
+    f64 = f_args[:4] + (64,)
+    ref64 = plain_f(*f64)
+    f_err = equal_twin("frustum_walk at 64 leaves", k_f(*f64), ref64)
+    n_ovf64 = int((ref64[1] < 0).sum())
+    if on_gpu and n_ovf64 == 0:
+        raise AssertionError("no tile overflows 64 leaves")
+
+    # shadow segments from phase 4's light through kernel D, and the rays
+    # shuffled through the sorted wrapper
+    light, pts, srays = shadow_rays(hits["D"], rays, center, extent)
+    cutoff = 1.0 - 1e-3
+    v1_budget = dict(max_leaves=V1["max_leaves"],
+                     pair_cap_factor=V1["pair_cap_factor"])
+    n_sov_v1 = int(pk.is_occluded_packets(
+        b8, light, pts, cutoff, chunk=V1["chunk"], leaf_kernel=True,
+        **v1_budget)[1].sum())
+    occ, sov = pk.is_occluded_packets(b8, light, pts, cutoff,
+                                      chunk=V1["chunk"], leaf_kernel=True,
+                                      **V1_SHADOW)
+    keep = ~torch.repeat_interleave(sov, 256)[idx]
+    occ_ref = brute_force_any(srays.take(idx), bvh.tris, cutoff)
+    occ_agree = float((occ[idx][keep] == occ_ref[keep]).float().mean())
+    if occ_agree < 0.999 or int(keep.sum()) < ORACLE_RAYS // 2:
+        raise AssertionError(f"v1 shadow: oracle agreement {occ_agree} on "
+                             f"{int(keep.sum())} rays")
+    # a seeded shuffle of the rays inside each tile: with one shared eye
+    # the coherence key is the octant alone, so a shuffle across tiles
+    # would leave no coherent tile to compare
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    within = torch.argsort(torch.rand(T, 256, generator=gen), dim=1)
+    perm = (torch.arange(T)[:, None] * 256 + within).reshape(-1).to(dev)
+    lo, hi = bvh.aabb
+    n_sorted_v1 = int(pk.intersect_packets_sorted(
+        b8, rays.take(perm), lo, hi, chunk=V1["chunk"], leaf_kernel=True,
+        **v1_budget)[1].sum()) // 256
+    hs, sov_r = pk.intersect_packets_sorted(
+        b8, rays.take(perm), lo, hi, chunk=V1["chunk"], leaf_kernel=True,
+        **V1_SORTED)
+    ok = ~sov_r
+    ref = hits["D"].take(perm)
+    n_diff = int((hs.prim[ok] != ref.prim[ok]).sum())
+    if n_diff or float(ok.float().mean()) < 0.5:
+        raise AssertionError(f"v1 sorted: prim differs on {n_diff} rays, "
+                             f"{int(ok.sum())} of {R} rays fit")
+    print(f"phase 11 v1 engine: {R} rays in tile order, {V1}, MRays/s: "
+          f"{', '.join(rates)}; zero overflowed tiles, prims equal across "
+          f"modes (t max diff {err:.3g}); {'; '.join(parts)}; kernels D-v2,"
+          f" D-v3 and E agree on t; F at 64 leaves equal to its twin "
+          f"(max_abs_err {f_err}, {n_ovf64} tiles overflow); shadow "
+          f"(kernel D): {n_sov_v1} of {T} tiles overflow at {v1_budget}, "
+          f"{int(sov.sum())} at {V1_SHADOW}, "
+          f"oracle agreement {occ_agree:.5f} on {int(keep.sum())} rays; "
+          f"sorted: {n_sorted_v1} tiles overflow at {v1_budget}, "
+          f"{int(sov_r.sum()) // 256} at {V1_SORTED}, prims equal "
+          f"on the other {int(ok.sum())} rays; launches {launches}; "
+          f"{time.perf_counter() - start:.1f} s [{gpu_line}]", flush=True)
+    for name, r in out.items():
+        kernel_line(11, name, r, gpu_line)
+    return out, launches
+
+
 def main():
     import torch
 
@@ -770,15 +1077,18 @@ def main():
                                               gpu_line)["mt_gathered"])
     phase_retrace(bvh, rays, shadow, gpu_line)
     phase_off_packets(bvh, rays, extent, gpu_line)
+    v1_kern, v1_launches = phase_v1(bvh, rays, scene[2], extent, gpu_line)
+    kern.update(v1_kern)
+    launches.update(v1_launches)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"tinybvh_tpu_torch/csrc/{SOURCES[name]}",
          "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]}
-        for name in ("cull", "mt_fused", "mt_gathered", "cull_blocks")]}),
-        flush=True)
+         **{k: kern[name][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
+        for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -58,9 +58,9 @@ def _camera(T=16, seed=4):
 def test_intersect_matches_jax_and_oracle(scene):
     tris, pb, jb = scene
     o, d = _camera()
-    h = pb.intersect(tt.make_rays(o, d), engine="packets")
+    h = pb.intersect(tt.make_rays(o, d, device="cpu"), engine="packets")
     jh = jb.intersect(tb.make_rays(o, d), engine="packets")
-    ref = brute_force_closest(tt.make_rays(o, d), pb.tris)
+    ref = brute_force_closest(tt.make_rays(o, d, device="cpu"), pb.tris)
     hp = h.prim.numpy()
     np.testing.assert_array_equal(hp, np.asarray(jh.prim))
     np.testing.assert_array_equal(hp, ref.prim.numpy())
@@ -80,7 +80,7 @@ def test_is_occluded_matches_jax_and_oracle(scene, shared_origin):
     scattered origins (coherence-sorted)."""
     tris, pb, jb = scene
     o, d = _camera()
-    ref = brute_force_closest(tt.make_rays(o, d), pb.tris)
+    ref = brute_force_closest(tt.make_rays(o, d, device="cpu"), pb.tris)
     pts = o + np.where(ref.prim.numpy() >= 0, ref.t.numpy(), 20.0)[:, None] * d
     if shared_origin:
         src = np.broadcast_to(np.array([5.0, 14.0, 5.0], np.float32),
@@ -90,10 +90,10 @@ def test_is_occluded_matches_jax_and_oracle(scene, shared_origin):
             -2, 12, pts.shape).astype(np.float32)
     seg_d = (pts - src).astype(np.float32)
     cutoff = 1.0 - 1e-3
-    occ = pb.is_occluded(tt.make_rays(src, seg_d), cutoff,
+    occ = pb.is_occluded(tt.make_rays(src, seg_d, device="cpu"), cutoff,
                          engine="packets").numpy()
     jocc = np.asarray(jb.is_occluded(tb.make_rays(src, seg_d), cutoff))
-    want = brute_force_any(tt.make_rays(src, seg_d), pb.tris, cutoff).numpy()
+    want = brute_force_any(tt.make_rays(src, seg_d, device="cpu"), pb.tris, cutoff).numpy()
     np.testing.assert_array_equal(occ, want)
     np.testing.assert_array_equal(occ, jocc)
     assert 0 < occ.mean() < 1
@@ -125,7 +125,7 @@ def test_unported_paths_raise(scene, call):
     for the BVH2 lockstep engine (slice 6)."""
     tris, pb, _ = scene
     o, d = _camera()
-    rays = tt.make_rays(o, d)
+    rays = tt.make_rays(o, d, device="cpu")
     with pytest.raises(NotImplementedError):
         if call == "wavefront_watertight":
             with use_config(tri_test="watertight"):
@@ -134,10 +134,10 @@ def test_unported_paths_raise(scene, call):
             pb.is_occluded(rays, 1.0, engine="rayloop")
         elif call == "small_batch_baldwin":
             with use_config(tri_test="baldwin"):
-                pb.intersect(tt.make_rays(o[:2048], d[:2048]))
+                pb.intersect(tt.make_rays(o[:2048], d[:2048], device="cpu"))
         elif call == "engine_lockstep2":
             pb.intersect(tt.make_rays(np.concatenate([o, o[:100]]),
-                                      np.concatenate([d, d[:100]])),
+                                      np.concatenate([d, d[:100]]), device="cpu"),
                          engine="lockstep2")
         elif call == "occluded_watertight":
             with use_config(tri_test="watertight"):
@@ -158,10 +158,10 @@ def test_validate_rays_gate():
     o = np.zeros((4, 3), np.float32)
     d = np.ones((4, 3), np.float32)
     d[1] = 0.0
-    tt.make_rays(o, d)
+    tt.make_rays(o, d, device="cpu")
     with use_config(validate_rays=True):
         with pytest.raises(ValueError):
-            tt.make_rays(o, d)
+            tt.make_rays(o, d, device="cpu")
 
 
 def test_loaders_match_jax(tmp_path):
@@ -202,9 +202,9 @@ def test_small_and_ragged_batches(scene, n):
     _, pb, jb = scene
     o, d = _camera()
     o, d = o[:n], d[:n]
-    h = pb.intersect(tt.make_rays(o, d))
+    h = pb.intersect(tt.make_rays(o, d, device="cpu"))
     _assert_hits(h, jb.intersect(tb.make_rays(o, d)))
-    _assert_hits(h, brute_force_closest(tt.make_rays(o, d), pb.tris))
+    _assert_hits(h, brute_force_closest(tt.make_rays(o, d, device="cpu"), pb.tris))
     assert 0 < (h.prim.numpy() >= 0).mean() < 1
 
 
@@ -213,7 +213,7 @@ def test_per_ray_t_max(scene):
     engine="packets", as in JAX) goes to the wavefront engine."""
     _, pb, jb = scene
     o, d = _camera()
-    rays = tt.make_rays(o, d)
+    rays = tt.make_rays(o, d, device="cpu")
     full = pb.intersect(rays, engine="wavefront")
     tm = np.random.default_rng(8).uniform(5.0, 15.0, o.shape[0]).astype(
         np.float32)
@@ -237,7 +237,7 @@ def test_engines_match_jax_and_oracle(scene, engine):
     oracles, for hits and shadow segments."""
     _, pb, jb = scene
     o, d = _camera(T=4)
-    rays = tt.make_rays(o, d)
+    rays = tt.make_rays(o, d, device="cpu")
     h = pb.intersect(rays, engine=engine)
     _assert_hits(h, jb.intersect(tb.make_rays(o, d), engine=engine))
     _assert_hits(h, brute_force_closest(rays, pb.tris))
@@ -245,8 +245,8 @@ def test_engines_match_jax_and_oracle(scene, engine):
     src = np.broadcast_to(np.array([5.0, 14.0, 5.0], np.float32),
                           pts.shape).copy()
     seg = (pts - src).astype(np.float32)
-    occ = pb.is_occluded(tt.make_rays(src, seg), 0.999, engine=engine)
-    want = brute_force_any(tt.make_rays(src, seg), pb.tris, 0.999)
+    occ = pb.is_occluded(tt.make_rays(src, seg, device="cpu"), 0.999, engine=engine)
+    want = brute_force_any(tt.make_rays(src, seg, device="cpu"), pb.tris, 0.999)
     np.testing.assert_array_equal(occ.numpy(), want.numpy())
     jocc = jb.is_occluded(tb.make_rays(src, seg), 0.999, engine=engine)
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
@@ -273,7 +273,7 @@ def test_packet_overflow_repaired_by_wavefront_retrace(scene, monkeypatch):
 
     _, pb, jb = scene
     o, d = _with_wide_tiles(2)
-    rays = tt.make_rays(o, d)
+    rays = tt.make_rays(o, d, device="cpu")
     calls = []
     real = wavefront.intersect_wavefront
 
@@ -300,4 +300,4 @@ def test_residual_overflow_raises(scene, monkeypatch):
         tuning._TABLES["cpu"], wf_cap_factor=1))
     o, d = _with_wide_tiles(16)
     with pytest.raises(RuntimeError, match="frontier"):
-        pb.intersect(tt.make_rays(o, d), engine="packets")
+        pb.intersect(tt.make_rays(o, d, device="cpu"), engine="packets")

@@ -9,8 +9,10 @@ no JAX, so it also runs where JAX is not installed:
 Tolerances (as tests/test_packet2.py:141-160): cull survivor keys and
 counts exactly equal; prim equal; t within rtol = atol = 1e-4; u, v
 within 1e-3. Kernels C and G are held to bit equality (t, row index,
-block mask). All four kernels round every multiply and add separately
-in the twins' order, so they are expected to agree bit for bit.
+block mask), and so are kernels D, E and F of the v1 packet engine (t,
+row position or packed winner; leaf lists and counts). All the kernels
+round every multiply and add separately in the twins' order, so they
+are expected to agree bit for bit.
 """
 
 import numpy as np
@@ -22,6 +24,9 @@ from tinybvh_tpu_torch import BVH  # noqa: E402
 from tinybvh_tpu_torch.core.intersect import brute_force_closest  # noqa: E402
 from tinybvh_tpu_torch.core.rays import make_rays  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
+from tinybvh_tpu_torch.traverse import frustum_walk as fw  # noqa: E402
+from tinybvh_tpu_torch.traverse import leaf_resolve as lr  # noqa: E402
+from tinybvh_tpu_torch.traverse import packet as pk  # noqa: E402
 from tinybvh_tpu_torch.traverse import packet2  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -107,7 +112,7 @@ def test_mt_kernel_matches_plain(scene, monkeypatch, any_hit, pack):
                                t_max=20.0 if any_hit else 1e30)
     (args,) = calls
     got = packet2._mt_fused_cuda(*args)
-    ref = packet2._mt_fused_plain(*args)
+    ref = packet2._mt_fused_plain(*args)[:5]
     torch.cuda.synchronize()
     t, i, u, v, p = (x.cpu().numpy() for x in got)
     tr, ir, ur, vr, pr = (x.cpu().numpy() for x in ref)
@@ -189,7 +194,7 @@ def test_mt_gathered_kernel_matches_plain(scene, monkeypatch, sort):
     (args,) = calls
     assert args[2].shape[1] == 2048
     t, i = packet2._mt_cuda(*args)
-    tr, ir = packet2._mt_plain(*args)
+    tr, ir, _ = packet2._mt_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(i, ir)
     assert torch.equal(t, tr)
@@ -296,3 +301,132 @@ def test_unfused_and_wavefront_retrace_on_cuda(scene):
         assert torch.equal(h.prim, ref.prim)
         np.testing.assert_allclose(h.t.cpu().numpy(), ref.t.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+def _v1_inputs(bvh, max_leaves):
+    """Tile rays (T, 3, 256) on the card and each tile's leaf list from
+    the v1 engine's phase 1."""
+    o, d = _camera_rays()
+    rays = make_rays(o, d, device="cuda")
+    T = rays.o.shape[0] // 256
+    o3 = rays.o.reshape(T, 256, 3)
+    d3 = rays.d.reshape(T, 256, 3)
+    leaves, _ = pk.collect_tile_leaves(bvh.bvh8, o3.amin(1), d3, max_leaves,
+                                       64, tile_ohi=o3.amax(1))
+    return (leaves, o3.permute(0, 2, 1).contiguous(),
+            d3.permute(0, 2, 1).contiguous(), o3, d3)
+
+
+@pytest.mark.parametrize("wide,max_leaves", [(False, 512), (True, 512),
+                                             (False, 40), (True, 40)])
+def test_leaf_resolve_v2_kernel_matches_plain(scene, wide, max_leaves):
+    """Kernel D, both bodies' tie rules, on the engine's gathered rows:
+    K4 = 2048 (8 chunks; v3 block 256) and K4 = 160 (a partial chunk; v3
+    block 32)."""
+    _, bvh = scene
+    leaves, o_t, d_t, _, _ = _v1_inputs(bvh, max_leaves)
+    T, K = leaves.shape
+    rows = torch.clamp(leaves, 0, bvh.bvh8.leaf_tris.shape[0] - 1)
+    idx = (rows[:, :, None] * 4
+           + torch.arange(4, device="cuda")).long()
+    geom = torch.where((leaves != 2**31 - 1)[:, :, None, None],
+                       lr.pack_tri_geom(bvh.bvh8)[idx],
+                       0.0).reshape(T, 4 * K, 12)
+    t, i = lr._resolve_v2_cuda(o_t, d_t, geom, wide)
+    tr, ir = lr._resolve_v2_plain(o_t, d_t, geom, wide)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir) and torch.equal(t, tr)
+    assert bool((tr < 1e30).any())
+
+
+@pytest.mark.parametrize("max_leaves", [512, 40])
+def test_leaf_resolve_kernel_matches_plain(scene, max_leaves):
+    """Kernel E on pack_leaf_geom rows gathered by the tile lists, with
+    the live mask and the rows (8 chunks of 64 leaves; a partial one)."""
+    _, bvh = scene
+    leaves, o_t, d_t, _, _ = _v1_inputs(bvh, max_leaves)
+    live = (leaves != 2**31 - 1).to(torch.int32)
+    rows = torch.clamp(leaves, 0, bvh.bvh8.leaf_tris.shape[0] - 1)
+    geom = lr.pack_leaf_geom(bvh.bvh8)[rows.long()].contiguous()
+    t, p = lr._resolve_cuda(o_t, d_t, geom, live, rows)
+    tr, pr = lr._resolve_plain(o_t, d_t, geom, live, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(p, pr) and torch.equal(t, tr)
+    assert bool((tr < 1e30).any())
+
+
+@pytest.mark.parametrize("max_leaves", [512, 16])
+def test_frustum_walk_kernel_matches_plain(scene, max_leaves):
+    """Kernel F: every tile's list and count equal the twin's; at 16
+    leaves the overflow path (count -1, first 16 leaves kept) runs on
+    most tiles."""
+    _, bvh = scene
+    _, _, _, o3, d3 = _v1_inputs(bvh, 16)
+    tile_o = o3[:, 0]
+    planes = pk._tile_planes(tile_o, d3).contiguous()
+    ndoto = pk._sum3(planes * tile_o[:, None, :]).reshape(-1, 1, 4)
+    args = (bvh.bvh8.bounds, bvh.bvh8.child, planes, ndoto.contiguous(),
+            max_leaves)
+    leaves, counts = fw._walk_cuda(*args)
+    lref, cref, _ = fw._walk_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, cref) and torch.equal(leaves, lref)
+    if max_leaves == 16:
+        assert int((cref == -1).sum()) > cref.shape[0] // 2
+    else:
+        assert bool((cref > 0).all())
+
+
+def test_v1_engine_on_cuda_matches_oracle(scene):
+    """intersect_packets through kernels F and D on the card: launches
+    counted, hits equal to the oracle on every ray of a tile that fits."""
+    tris, bvh = scene
+    o, d = _camera_rays()
+    rays = make_rays(o, d, device="cuda")
+    before = (dict(lr.LAUNCHES), dict(fw.LAUNCHES))
+    h, ov = pk.intersect_packets(bvh.bvh8, rays, max_leaves=512,
+                                 leaf_kernel=True, walk_kernel=True)
+    assert lr.LAUNCHES["leaf_resolve_v2"] > before[0]["leaf_resolve_v2"]
+    assert fw.LAUNCHES["frustum_walk"] > before[1]["frustum_walk"]
+    keep = ~torch.repeat_interleave(ov, 256)
+    assert bool(keep.any())
+    ref = brute_force_closest(rays, bvh.tris)
+    assert torch.equal(h.prim[keep], ref.prim[keep])
+    m = keep & (ref.prim >= 0)
+    np.testing.assert_allclose(h.t[m].cpu().numpy(), ref.t[m].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_v1_wrappers_reject_bad_inputs(scene):
+    """Kernels D, E and F: a wrong dtype, a mix of devices or a bad shape
+    raises; nothing falls back to the plain twin."""
+    _, bvh = scene
+    leaves, o_t, d_t, o3, d3 = _v1_inputs(bvh, 64)
+    T = leaves.shape[0]
+    geom = torch.zeros((T, 256, 12), device="cuda")
+    before = (dict(lr.LAUNCHES), dict(fw.LAUNCHES))
+    with pytest.raises(TypeError):
+        lr.leaf_resolve_v2(o_t, d_t, geom.double())
+    with pytest.raises(ValueError):
+        lr.leaf_resolve_v2(o_t.cpu(), d_t, geom)
+    with pytest.raises(ValueError):
+        lr.leaf_resolve_v2(o_t[:, :2].contiguous(), d_t, geom)
+    g48 = torch.zeros((T, 64, 48), device="cuda")
+    live = torch.ones((T, 64), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        lr.leaf_resolve(o_t, d_t, g48, live.float(), live)
+    with pytest.raises(ValueError):
+        lr.leaf_resolve(o_t, d_t, g48[:, :, :40].contiguous(), live, live)
+    planes = pk._tile_planes(o3[:, 0], d3).contiguous()
+    ndoto = torch.zeros((T, 1, 4), device="cuda")
+    b8 = bvh.bvh8
+    with pytest.raises(TypeError):
+        fw.collect_tile_leaves_kernel(b8.bounds, b8.child.long(), planes,
+                                      ndoto, 64)
+    with pytest.raises(ValueError):
+        fw.collect_tile_leaves_kernel(b8.bounds, b8.child, planes.cpu(),
+                                      ndoto, 64)
+    with pytest.raises(ValueError):
+        fw.collect_tile_leaves_kernel(b8.bounds, b8.child, planes,
+                                      ndoto.reshape(T, 4), 64)
+    assert (dict(lr.LAUNCHES), dict(fw.LAUNCHES)) == before

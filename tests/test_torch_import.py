@@ -22,6 +22,9 @@ def test_import_loads_no_jax():
         "import tinybvh_tpu_torch.traverse.packet2, tinybvh_tpu_torch._build\n"
         "import tinybvh_tpu_torch.native, tinybvh_tpu_torch.io.loaders\n"
         "import tinybvh_tpu_torch.core.intersect\n"
+        "import tinybvh_tpu_torch.traverse.packet\n"
+        "import tinybvh_tpu_torch.traverse.leaf_resolve\n"
+        "import tinybvh_tpu_torch.traverse.frustum_walk\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tinybvh_tpu'))\n"
         "print(bad)\n"
@@ -41,6 +44,47 @@ def test_build_module_imports_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "_kernels", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.kernels()
+
+
+def test_builder_source_is_the_jax_packages():
+    """The port compiles its own copy of the native builder; it must stay
+    byte-identical to the JAX package's, so both build the same trees."""
+    with open(os.path.join(REPO, "tinybvh_tpu", "native", "builder.c"),
+              "rb") as f:
+        jax_src = f.read()
+    with open(os.path.join(REPO, "tinybvh_tpu_torch", "native", "builder.c"),
+              "rb") as f:
+        port_src = f.read()
+    assert port_src == jax_src
+
+
+@pytest.mark.parametrize("entry", ["bvh", "make_rays", "tuning"])
+def test_no_card_raises_unless_cpu_is_asked(monkeypatch, entry):
+    """Without a CUDA device, the entry points raise instead of carrying
+    on on the CPU; device="cpu" runs there."""
+    import numpy as np
+
+    from tinybvh_tpu_torch import BVH, make_rays
+    from tinybvh_tpu_torch.io.loaders import random_tris
+    from tinybvh_tpu_torch.tuning import detect_generation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    o = np.zeros((4, 3), np.float32)
+    d = np.tile(np.float32([[0.0, 0.0, 1.0]]), (4, 1))
+    calls = {"bvh": lambda **kw: BVH(random_tris(64, seed=0), **kw),
+             "make_rays": lambda **kw: make_rays(o, d, **kw),
+             "tuning": lambda **kw: detect_generation(**kw)}
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    if entry == "make_rays":
+        assert out.o.device.type == "cpu"
+        # tensor inputs keep their own device
+        assert make_rays(out.o, out.d).o.device.type == "cpu"
+    elif entry == "bvh":
+        assert out.device.type == "cpu"
+    else:
+        assert out == "cpu"
 
 
 def _cull_args(device):

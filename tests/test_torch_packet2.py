@@ -112,7 +112,7 @@ def test_tile_planes_and_frusta_match(scene):
     want = j_tile_planes(jnp.asarray(o.reshape(T, 256, 3)[:, 0]),
                          jnp.asarray(d.reshape(T, 256, 3)))
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6, atol=1e-6)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     fr = p2._tile_frusta(aux, rays, 1e30)
     jfr = jp2._tile_frusta(jb.packet_aux, tb.make_rays(o, d), 1e30)
     for a, b in zip(fr, jfr):
@@ -121,7 +121,7 @@ def test_tile_planes_and_frusta_match(scene):
 
 def _cull_inputs(aux, T=8):
     o, d = _camera_rays(T=T)
-    return p2._tile_frusta(aux, make_rays(o, d), 1e30)[:6]
+    return p2._tile_frusta(aux, make_rays(o, d, device="cpu"), 1e30)[:6]
 
 
 @pytest.mark.parametrize("span_mult,k_cap", [(1, 256), (2, 128), (1, 8)])
@@ -166,7 +166,7 @@ def test_mt_resolve_fused_matches_jax(scene, monkeypatch, any_hit):
         return real(*a, **kw)
 
     monkeypatch.setattr(p2, "mt_resolve_fused", rec)
-    p2.intersect_packets2(bvh8, aux, make_rays(o, d), max_leaves=256,
+    p2.intersect_packets2(bvh8, aux, make_rays(o, d, device="cpu"), max_leaves=256,
                           retrace=False, any_hit=any_hit,
                           t_max=6.0 if any_hit else 1e30)
     (a, kw), = calls
@@ -189,7 +189,7 @@ def test_intersect_sorted_matches_jax_and_oracle(scene):
     o = rng.uniform(-1, 11, (512, 3)).astype(np.float32)
     d = rng.normal(size=(512, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     h, ov = p2.intersect_packets2_sorted(bvh8, aux, rays, [0, 0, 0],
                                          [10, 10, 10], max_leaves=256,
                                          retrace="packet", retrace_ml=2048,
@@ -207,7 +207,7 @@ def test_intersect_sorted_matches_jax_and_oracle(scene):
 def test_occluded_sorted_matches_jax_and_oracle(scene):
     tris, jb, bvh8, aux = scene
     o, d = _camera_rays(T=2)
-    ref = brute_force_closest(make_rays(o, d), torch.from_numpy(tris))
+    ref = brute_force_closest(make_rays(o, d, device="cpu"), torch.from_numpy(tris))
     pts = np.clip(_np(ref.t)[:, None] * d + o, -50, 50).astype(np.float32)
     light = np.array([5.0, 14.0, 5.0], np.float32)
     occ, ovf = p2.is_occluded_packets2_sorted(
@@ -218,7 +218,7 @@ def test_occluded_sorted_matches_jax_and_oracle(scene):
         jb.bvh8, jb.packet_aux, light, pts, interpret=True,
         retrace="packet", retrace_ml=2048, retrace_blocks=256)
     np.testing.assert_array_equal(_np(occ), _np(jocc))
-    seg = make_rays(np.broadcast_to(light, pts.shape), pts - light)
+    seg = make_rays(np.broadcast_to(light, pts.shape), pts - light, device="cpu")
     want = brute_force_any(seg, torch.from_numpy(tris), 1.0 - 1e-3)
     np.testing.assert_array_equal(_np(occ), _np(want))
     assert 0 < _np(occ).mean() < 1
@@ -232,7 +232,7 @@ def test_packet_retrace_restores_hits(scene):
     dw = rng.normal(size=(256, 3)).astype(np.float32)
     dw /= np.linalg.norm(dw, axis=1, keepdims=True)
     ow = np.full((256, 3), 5.0, np.float32)
-    rays = make_rays(ow, dw)
+    rays = make_rays(ow, dw, device="cpu")
     _, ov0 = p2.intersect_packets2(bvh8, aux, rays, max_leaves=32,
                                    retrace=False)
     assert _np(ov0).all()
@@ -259,7 +259,7 @@ def test_unported_modes_raise(scene, kw):
     o, d = _camera_rays(T=1)
     with pytest.raises(NotImplementedError, match="micromaps"):
         p2.intersect_packets2(bvh8, dataclasses.replace(aux, omap_s=2),
-                              make_rays(o, d), **kw)
+                              make_rays(o, d, device="cpu"), **kw)
 
 
 @pytest.mark.parametrize("what", ["retrace", "occluded_retrace",
@@ -270,7 +270,7 @@ def test_bad_arguments_raise(scene, what):
     ValueError before any work."""
     _, _, bvh8, aux = scene
     o, d = _camera_rays(T=1)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     with pytest.raises(ValueError):
         if what == "retrace":
             p2.intersect_packets2(bvh8, aux, rays, retrace="exact")
@@ -284,7 +284,7 @@ def test_bad_arguments_raise(scene, what):
             p2.intersect_packets2(bvh8, aux, rays, fused=False,
                                   max_leaves=16)
         else:
-            p2.intersect_packets2(bvh8, aux, make_rays(o[:200], d[:200]))
+            p2.intersect_packets2(bvh8, aux, make_rays(o[:200], d[:200], device="cpu"))
 
 
 def test_tiny_scene_and_pack1_tables(scene):
@@ -302,7 +302,7 @@ def test_tiny_scene_and_pack1_tables(scene):
     d = (np.array([[0.5, 0.5, 0.5]])
          + 0.1 * rng.normal(size=(256, 3))).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     ref = brute_force_closest(rays, pb.tris)
     aux1 = p2.build_packet_aux_host(pb._bvh8_host, pack=1)
     j1 = jbuild(pb._bvh8_host, pack=1)
@@ -345,7 +345,7 @@ def test_mt_resolve_matches_jax(scene, monkeypatch, sort):
     _, _, bvh8, aux = scene
     o, d = _camera_rays(T=4)
     calls = _capture(monkeypatch, "mt_resolve")
-    p2.intersect_packets2(bvh8, aux, make_rays(o, d), max_leaves=256,
+    p2.intersect_packets2(bvh8, aux, make_rays(o, d, device="cpu"), max_leaves=256,
                           retrace=False, fused=False, sort=sort)
     (a,) = calls
     assert a[2].shape[1:] == (1024, 48)
@@ -374,7 +374,7 @@ def test_cull_blocks_matches_jax_and_inline_tier(scene, monkeypatch):
     _, _, bvh8, aux = scene
     o, d = _camera_rays(T=16)
     calls = _capture(monkeypatch, "cull")
-    p2.intersect_packets2(bvh8, aux, make_rays(o, d), retrace=False)
+    p2.intersect_packets2(bvh8, aux, make_rays(o, d, device="cpu"), retrace=False)
     desc = calls[0][2]
     got = p2.cull_blocks(desc, aux.blk_lo, aux.blk_hi, aux.n_blocks)
     tp = desc.shape[0]
@@ -422,7 +422,7 @@ def test_intersect_modes_match_jax(scene, kw):
         o, d = _wide_bundle()
     else:
         o, d = _camera_rays(T=4)
-    out = p2.intersect_packets2(bvh8, aux, make_rays(o, d), **kw)
+    out = p2.intersect_packets2(bvh8, aux, make_rays(o, d, device="cpu"), **kw)
     jout = jp2.intersect_packets2(jb.bvh8, jb.packet_aux, tb.make_rays(o, d),
                                   interpret=True, **kw)
     assert len(out) == len(jout) == (3 if kw.get("return_counts") else 2)
@@ -440,7 +440,7 @@ def test_intersect_modes_match_jax(scene, kw):
 def test_primary_matches_wavefront(scene):
     _, _, bvh8, aux = scene
     o, d = _camera_rays(T=4)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     hits, ovf = p2.intersect_packets2(bvh8, aux, rays, max_leaves=256,
                                       retrace=False)
     ref, wovf = intersect_wavefront(bvh8, rays, cap_factor=16)
@@ -461,7 +461,7 @@ def test_occlusion_vs_brute_force(scene):
     against an f64 Möller–Trumbore brute force."""
     tris, _, bvh8, aux = scene
     o, d = _camera_rays(T=2)
-    ref, _ = intersect_wavefront(bvh8, make_rays(o, d), cap_factor=16)
+    ref, _ = intersect_wavefront(bvh8, make_rays(o, d, device="cpu"), cap_factor=16)
     pts = np.clip(_np(ref.t)[:, None] * d + o, -50, 50).astype(np.float32)
     light = np.array([5.0, 14.0, 5.0], np.float32)
     occ, ovf = p2.is_occluded_packets2(
@@ -495,7 +495,7 @@ def test_sorted_diffuse_matches_wavefront(scene):
     o = rng.uniform(-1, 11, (2048, 3)).astype(np.float32)
     d = rng.normal(size=(2048, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     hits, fb = p2.intersect_packets2_sorted(
         bvh8, aux, rays, [0.0, 0.0, 0.0], [10.0, 10.0, 10.0],
         max_leaves=256, retrace=True, wf_cap_factor=24)
@@ -509,7 +509,7 @@ def test_overflow_reported_and_retraced(scene):
     """A tiny leaf budget flags overflow; the wavefront retrace restores
     the hits and clears the mask."""
     _, _, bvh8, aux = scene
-    rays = make_rays(*_wide_bundle())
+    rays = make_rays(*_wide_bundle(), device="cpu")
     _, ovf0 = p2.intersect_packets2(bvh8, aux, rays, max_leaves=32,
                                     retrace=False)
     assert _np(ovf0).all()

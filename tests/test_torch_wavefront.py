@@ -73,7 +73,7 @@ def test_wavefront_matches_jax_and_brute_force(n_tris):
     tris = random_tris(n_tris, seed=n_tris + 7)
     jb8, b8 = _both(tris)
     o, d = _rays(n_tris, 256)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     hits, overflow = intersect_wavefront(b8, rays)
     assert not overflow
     jh, jov = jwf.intersect_wavefront(jb8, tb.make_rays(o, d))
@@ -94,7 +94,7 @@ def test_wavefront_sphere_interior():
     d = rng.normal(size=(256, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = np.zeros((256, 3), np.float32)
-    hits, overflow = intersect_wavefront(b8, make_rays(o, d), cap_factor=16)
+    hits, overflow = intersect_wavefront(b8, make_rays(o, d, device="cpu"), cap_factor=16)
     assert not overflow
     assert (hits.prim.numpy() >= 0).all()
     assert (np.abs(hits.t.numpy() - 1.0) < 0.05).all()
@@ -106,7 +106,7 @@ def test_wavefront_any_hit():
     tris = random_tris(900, seed=5)
     jb8, b8 = _both(tris)
     o, d = _rays(31, 512)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     for t_max in (1.0, BVH_FAR):
         occ = is_occluded_wavefront(b8, rays, t_max)
         ref = brute_force_any(rays, torch.from_numpy(tris), t_max)
@@ -121,7 +121,7 @@ def test_wavefront_t_max():
     tris = random_tris(400, seed=6)
     jb8, b8 = _both(tris)
     o, d = _rays(41, 256)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     full, _ = intersect_wavefront(b8, rays)
     clipped, _ = intersect_wavefront(b8, rays, t_max=3.0)
     ft = full.t.numpy()
@@ -140,7 +140,7 @@ def test_wavefront_overflow_flag_matches_jax():
     tris = random_tris(2000, seed=9)
     jb8, b8 = _both(tris)
     o, d = _rays(51, 256)
-    _, ovf = intersect_wavefront(b8, make_rays(o, d), cap_factor=1)
+    _, ovf = intersect_wavefront(b8, make_rays(o, d, device="cpu"), cap_factor=1)
     _, jovf = jwf.intersect_wavefront(jb8, tb.make_rays(o, d), cap_factor=1)
     assert ovf and bool(jovf)
 
@@ -149,7 +149,7 @@ def test_wavefront_overflow_flag_matches_jax():
 def test_unported_options_raise(what):
     tris = random_tris(20, seed=1)
     _, b8 = _both(tris)
-    rays = make_rays(*_rays(1, 8))
+    rays = make_rays(*_rays(1, 8), device="cpu")
     with pytest.raises(NotImplementedError):
         if what in ("watertight", "baldwin"):
             with use_config(tri_test=what):

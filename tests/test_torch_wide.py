@@ -73,7 +73,7 @@ def test_bvh8_matches_jax_and_brute_force(n_tris):
     tris = random_tris(n_tris, seed=n_tris + 7)
     jb8, b8 = _both(tris)
     o, d = _rays(n_tris + 100, 256)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     hits, cost = intersect_bvh8(b8, rays, with_cost=True)
     jh, jcost = jwd.intersect_bvh8(jb8, tb.make_rays(o, d), with_cost=True)
     assert_same_hits(hits, jh)
@@ -85,7 +85,7 @@ def test_bvh8_occlusion():
     tris = random_tris(800, seed=5)
     jb8, b8 = _both(tris)
     o, d = _rays(61, 512)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     for t_max in (1.0, BVH_FAR):
         occ = is_occluded_bvh8(b8, rays, t_max)
         ref = brute_force_any(rays, torch.from_numpy(tris), t_max)
@@ -101,7 +101,7 @@ def test_bvh8_sphere_closed_surface():
     d = rng.normal(size=(256, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = np.zeros((256, 3), np.float32)
-    hits = intersect_bvh8(b8, make_rays(o, d))
+    hits = intersect_bvh8(b8, make_rays(o, d, device="cpu"))
     assert (hits.prim.numpy() >= 0).all()
     assert (np.abs(hits.t.numpy() - 1.0) < 0.05).all()
     assert_same_hits(hits, jwd.intersect_bvh8(jb8, tb.make_rays(o, d)))
@@ -114,7 +114,7 @@ def test_bvh4_width_collapse():
     jb8, b8 = _both(tris, width=4)
     assert (b8.child.numpy() != EMPTY_SLOT).sum(axis=1).max() <= 4
     o, d = _rays(81, 256)
-    rays = make_rays(o, d)
+    rays = make_rays(o, d, device="cpu")
     hits = intersect_bvh8(b8, rays)
     assert_same_hits(hits, jwd.intersect_bvh8(jb8, tb.make_rays(o, d)))
     assert_matches_brute_force(hits, rays, tris)
@@ -125,7 +125,7 @@ def test_per_ray_t_max():
     jb8, b8 = _both(tris)
     o, d = _rays(91, 256)
     tm = np.random.default_rng(5).uniform(0.5, 8.0, 256).astype(np.float32)
-    hits = intersect_bvh8(b8, make_rays(o, d), torch.from_numpy(tm))
+    hits = intersect_bvh8(b8, make_rays(o, d, device="cpu"), torch.from_numpy(tm))
     assert_same_hits(hits, jwd.intersect_bvh8(jb8, tb.make_rays(o, d), tm))
     assert (hits.t.numpy()[hits.prim.numpy() >= 0] < tm[
         hits.prim.numpy() >= 0]).all()

@@ -1,13 +1,14 @@
 """Builds the port's native code at first use, into `_build/` beside
 this file (ignored by git), keyed by a hash of the sources and flags.
 
-* CUDA kernels: `nvcc` compiles every `csrc/*.cu` into ONE shared
-  library with a plain C interface, loaded with ctypes. A source that
-  includes PyTorch's headers takes minutes to compile; a plain C
+* CUDA kernels: one `nvcc` per `csrc/*.cu`, all started together,
+  compiles each source to an object (`compile_once`); one more links
+  them into ONE shared library with a plain C interface, loaded with ctypes. A source
+  that includes PyTorch's headers takes minutes to compile; a plain C
   interface takes seconds. Pointers and the stream pass as `c_void_p`;
   every C entry returns `cudaGetLastError()` and `check()` raises when
   it is not 0.
-* The host BVH builder: `cc` compiles `tinybvh_tpu/native/builder.c`
+* The host BVH builder: `cc` compiles the port's `native/builder.c`
   (see native/__init__.py).
 
 Importing this module needs neither compiler; building does.
@@ -25,7 +26,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _kernels = None
 
@@ -45,19 +46,38 @@ def _key(paths, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def compile_once(cmd_prefix, sources, flags, name, deps=()) -> str:
-    """Run `cmd_prefix + flags + sources -o lib` unless a library keyed by
-    the same sources, headers (`deps`) and flags exists. Returns the
-    library path."""
-    key = _key(list(sources) + list(deps), flags)
+def compile_once(compile_cmd, sources, link_cmd, name, deps=()) -> str:
+    """Build the shared library `name` from `sources` unless a library
+    keyed by the same sources, headers (`deps`) and commands exists: one
+    `compile_cmd -c src -o obj` per source, all started together, then
+    `link_cmd objs -o lib`. Returns the library path."""
+    key = _key(list(sources) + list(deps), compile_cmd + link_cmd)
     lib = os.path.join(build_dir(), f"{name}_{key}.so")
-    if not os.path.exists(lib):
+    if os.path.exists(lib):
+        return lib
+    work = f"{lib}.{os.getpid()}.d"
+    os.makedirs(work, exist_ok=True)
+    try:
+        objs = [os.path.join(work, os.path.basename(src) + ".o")
+                for src in sources]
+        procs = [subprocess.Popen(compile_cmd + ["-c", src, "-o", obj],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        errs = [(src, p.communicate()[1], p.returncode)
+                for src, p in zip(sources, procs)]
+        failed = [f"{src}:\n{err}" for src, err, rc in errs if rc != 0]
+        if failed:
+            raise RuntimeError(f"building {name} failed:\n"
+                               + "\n".join(failed))
         tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run(cmd_prefix + flags + sources + ["-o", tmp],
+        proc = subprocess.run(link_cmd + objs + ["-o", tmp],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building {name} failed:\n{proc.stderr}")
+            raise RuntimeError(f"linking {name} failed:\n{proc.stderr}")
         os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -82,6 +102,11 @@ _SIGNATURES = {
     "tbvh_mt_gathered": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # cull_blocks.cu
     "tbvh_cull_blocks": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # leaf_resolve.cu
+    "tbvh_leaf_resolve_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tbvh_leaf_resolve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # frustum_walk.cu
+    "tbvh_frustum_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -91,8 +116,10 @@ def kernels():
     if _kernels is None:
         sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
         headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-        lib_path = compile_once([find_nvcc(), "-I", CSRC], sources,
-                                NVCC_FLAGS, "libtbvh_kernels", deps=headers)
+        nvcc = find_nvcc()
+        lib_path = compile_once([nvcc, "-I", CSRC] + NVCC_FLAGS, sources,
+                                [nvcc, "-shared"], "libtbvh_kernels",
+                                deps=headers)
         lib = ctypes.CDLL(lib_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

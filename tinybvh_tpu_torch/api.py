@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tinybvh_tpu_torch.core.rays import Hits, Rays
+from tinybvh_tpu_torch.core.rays import Hits, Rays, default_device
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
 
 _SLICE = "ROADMAP queue 1"
@@ -27,7 +27,8 @@ def _unsupported(what: str, slice_no: int):
 class BVH:
     """A BVH over a triangle soup: tris (N, 3, 3) float32 (or a (3N, 3|4)
     vertex soup), built on the host and uploaded to `device` (default:
-    CUDA when available, else the CPU)."""
+    the card; with no CUDA device it raises RuntimeError unless
+    device="cpu" asks for the kernels' plain versions)."""
 
     def __init__(self, tris, builder: str = "sah", max_leaf: int | None = None,
                  bins: int | None = None, layout: str = "bvh8", device=None):
@@ -46,9 +47,7 @@ class BVH:
             raise _unsupported(f"layout={layout!r}", 6)
         if bins != 8:
             raise _unsupported("the numpy SAH builder (bins != 8)", 11)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = default_device(device)
         if isinstance(tris, torch.Tensor):
             tris = tris.detach().cpu().numpy()
         tris_host = np.asarray(tris, np.float32)

@@ -45,14 +45,28 @@ class Hits:
                     prim=self.prim[idx], inst=self.inst[idx])
 
 
+def default_device(device=None) -> torch.device:
+    """`device`, or the card when it is None. The port runs on the CPU
+    only when asked: with no CUDA device and no `device`, this raises
+    instead of carrying on there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device found; pass device="cpu" to run '
+                           "the kernels' plain versions on the CPU")
+    return torch.device("cuda")
+
+
 def make_rays(o, d, mask=None, device=None) -> Rays:
-    """Build a ray batch on `device` (default: o's device, else the CPU),
-    precomputing reciprocal directions. With config.validate_rays,
-    non-finite or zero-length rays raise here."""
+    """Build a ray batch on `device`, precomputing reciprocal directions.
+    Without `device`, tensor inputs keep o's device and other inputs go
+    to the card (default_device). With config.validate_rays, non-finite
+    or zero-length rays raise here."""
     from tinybvh_tpu_torch.config import get_config
 
     if device is None:
-        device = o.device if isinstance(o, torch.Tensor) else "cpu"
+        device = (o.device if isinstance(o, torch.Tensor)
+                  else default_device())
     o, d = (x.to(device=device, dtype=torch.float32)
             if isinstance(x, torch.Tensor)
             else torch.tensor(np.asarray(x, np.float32), device=device)

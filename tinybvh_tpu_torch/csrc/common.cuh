@@ -1,5 +1,6 @@
-// Shared constants and device functions of the packet2 kernels (see
-// traverse/packet2.py). Every multiply and add is rounded separately
+// Shared constants and device functions of the packet kernels (see
+// traverse/packet2.py, traverse/leaf_resolve.py and
+// traverse/frustum_walk.py). Every multiply and add is rounded separately
 // (__fmul_rn / __fadd_rn, no FMA contraction) in the order of the JAX
 // kernels, so the kernels agree with the plain PyTorch twins bit for bit.
 #pragma once
@@ -72,6 +73,44 @@ __device__ __forceinline__ SignedTerms signed_terms(const float* g,
   r.hit = r.us >= 0.f && r.vs >= 0.f && __fadd_rn(r.us, r.vs) <= r.ad &&
           r.ts > 0.f && r.ad > 0.f;
   return r;
+}
+
+// Classic Möller–Trumbore of kernels D and E (≙ the expression of the JAX
+// leaf kernels, tinybvh_tpu/traverse/pallas_leaf.py:120-135): one ray
+// (o, d) against one triangle g = [v0x v0y v0z e1x e1y e1z e2x e2y e2z],
+// every product and sum rounded on its own in the JAX order, and the
+// reciprocal an IEEE division. Returns t, or kFar where there is no hit.
+// Twin: traverse/leaf_resolve.py _classic_mt.
+__device__ __forceinline__ float classic_mt(const float o[3], const float d[3],
+                                            const float g[9]) {
+  const float hx = __fsub_rn(__fmul_rn(d[1], g[8]), __fmul_rn(d[2], g[7]));
+  const float hy = __fsub_rn(__fmul_rn(d[2], g[6]), __fmul_rn(d[0], g[8]));
+  const float hz = __fsub_rn(__fmul_rn(d[0], g[7]), __fmul_rn(d[1], g[6]));
+  const float det = __fadd_rn(
+      __fadd_rn(__fmul_rn(g[3], hx), __fmul_rn(g[4], hy)), __fmul_rn(g[5], hz));
+  const bool okd = fabsf(det) > 1e-9f;
+  const float inv = __fdiv_rn(1.f, okd ? det : 1.f);
+  const float sx = __fsub_rn(o[0], g[0]);
+  const float sy = __fsub_rn(o[1], g[1]);
+  const float sz = __fsub_rn(o[2], g[2]);
+  const float u = __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(sx, hx), __fmul_rn(sy, hy)),
+                __fmul_rn(sz, hz)),
+      inv);
+  const float qx = __fsub_rn(__fmul_rn(sy, g[5]), __fmul_rn(sz, g[4]));
+  const float qy = __fsub_rn(__fmul_rn(sz, g[3]), __fmul_rn(sx, g[5]));
+  const float qz = __fsub_rn(__fmul_rn(sx, g[4]), __fmul_rn(sy, g[3]));
+  const float v = __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(d[0], qx), __fmul_rn(d[1], qy)),
+                __fmul_rn(d[2], qz)),
+      inv);
+  const float t = __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(g[6], qx), __fmul_rn(g[7], qy)),
+                __fmul_rn(g[8], qz)),
+      inv);
+  const bool hit = okd && u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f &&
+                   t > 0.f;
+  return hit ? t : kFar;
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {

@@ -1,10 +1,11 @@
 """ctypes loader for the native host builder, with no jax in it.
 
-Compiles `tinybvh_tpu/native/builder.c` BY PATH (the JAX package is never
-imported) into the port's ignored `_build/` directory, with the same
-compiler flags as the JAX package's loader, so both packages build
-bit-identical trees from the same triangles. Raises RuntimeError where
-no C compiler is found: the numpy fallback builder is not ported yet.
+Compiles the port's own copy of the JAX package's builder,
+`native/builder.c` beside this file (a test holds the two byte-identical),
+into the port's ignored `_build/` directory, with the same compiler
+flags as the JAX package's loader, so both packages build bit-identical
+trees from the same triangles. Raises RuntimeError where no C compiler
+is found: the numpy fallback builder is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,9 +18,8 @@ import numpy as np
 
 from tinybvh_tpu_torch._build import compile_once
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "tinybvh_tpu", "native", "builder.c")
-CC_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "builder.c")
+CC_FLAGS = ["-O3", "-march=native", "-fPIC"]
 
 _lib = None
 
@@ -34,8 +34,8 @@ def _load():
         cc = shutil.which("cc") or shutil.which("gcc")
         if cc is None:
             raise RuntimeError("no C compiler found to build builder.c")
-        lib = ctypes.CDLL(compile_once([cc], [_SRC], CC_FLAGS,
-                                       "libtinybvh_native"))
+        lib = ctypes.CDLL(compile_once([cc] + CC_FLAGS, [_SRC],
+                                       [cc, "-shared"], "libtinybvh_native"))
         lib.tinybvh_build_binned.restype = _i32
         lib.tinybvh_build_binned.argtypes = [
             _F, _i32, _i32, _F, _F, _I, _I, _I, _F, _F, _F]

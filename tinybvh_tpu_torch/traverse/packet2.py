@@ -39,12 +39,12 @@ import numpy as np
 import torch
 
 from tinybvh_tpu_torch import _build
-from tinybvh_tpu_torch.core.intersect import moller_trumbore, tri_edges
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR, cross, norm
 from tinybvh_tpu_torch.layouts.mbvh import BVH8
 from tinybvh_tpu_torch.traverse.packet import (
-    TILE, _morton3, _tile_planes, inverse_permutation, sort_rays_coherent,
+    TILE, _finish, _morton3, _tile_planes, inverse_permutation,
+    sort_rays_coherent,
 )
 
 _I32MAX = 2**31 - 1
@@ -516,7 +516,9 @@ def _mt_fused_plain(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
     (T, nb) f32 super-block gates; tmax (T,) f32 any-hit cutoff; ff
     (T, 12, 256) f32 ray features [d, o x d, o, 1, 0, 0]; t0 (T, 256)
     f32 initial t; gtab (rows, 128) f32. Returns (t, idx, u, v, prim),
-    each (T, 256): idx = super_block * tri_blk + row of the winner."""
+    each (T, 256): idx = super_block * tri_blk + row of the winner, and
+    the super-blocks each tile ran before its gate stopped it ((T,) i64;
+    the kernel's work, which the wrapper drops)."""
     T = offs.shape[0]
     nb = lbg.shape[1]
     kpb = tri_blk // rps
@@ -526,6 +528,7 @@ def _mt_fused_plain(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
     u_out = torch.zeros((T, TILE), dtype=torch.float32, device=dev)
     v_out = torch.zeros((T, TILE), dtype=torch.float32, device=dev)
     p_out = torch.full((T, TILE), -1, dtype=torch.int32, device=dev)
+    n_sb = torch.zeros(T, dtype=torch.int64, device=dev)
     rows = torch.arange(tri_blk, device=dev)
     for c0 in range(0, T, _MT_TILES):
         c1 = min(T, c0 + _MT_TILES)
@@ -536,6 +539,7 @@ def _mt_fused_plain(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
         while bool(active.any()):
             a = torch.nonzero(active)[:, 0]
             ta = a + c0
+            n_sb[ta] += 1
             # gate with the tile's t_far before this block (NaN passes)
             t_far = t_out[ta].amax(dim=1)
             gate_n = lbg[ta, min(sb + 1, nb - 1)]
@@ -569,13 +573,13 @@ def _mt_fused_plain(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
                                     p_out[ta])
             active[a] = nxt
             sb += 1
-    return t_out, i_out, u_out, v_out, p_out
+    return t_out, i_out, u_out, v_out, p_out, n_sb
 
 
 def _mt_fused_cuda(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
                    tri_blk: int, rps: int, pack: int, any_hit: bool):
-    """Kernel B launch (csrc/mt_fused.cu); same contract as the plain
-    twin."""
+    """Kernel B launch (csrc/mt_fused.cu); the plain twin's outputs
+    without its work count."""
     T = offs.shape[0]
     nb = lbg.shape[1]
     _check("mt offs", offs, torch.int32, (T, k_cap))
@@ -610,7 +614,7 @@ def mt_fused(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
             pack, any_hit)
     if _on_cuda("mt_fused", offs, counts, lbg, tmax, ff, t0, gtab):
         return _mt_fused_cuda(*args)
-    return _mt_fused_plain(*args)
+    return _mt_fused_plain(*args)[:5]
 
 
 def mt_resolve_fused(offs, counts, lbg, tmax, o_t, d_t, gtab_flat,
@@ -656,12 +660,15 @@ def _mt_plain(o_t, d_t, geom, lbg, tmax):
     initial t. Per tile, 128-row blocks run while the block's gate is <=
     the tile's (NaN-propagating) max best t; within a block the first
     row of the minimum wins, across blocks only a strictly smaller t.
-    Returns (t (T, 256) f32, idx (T, 256) i32 row of the winner)."""
+    Returns (t (T, 256) f32, idx (T, 256) i32 row of the winner, the
+    blocks each tile ran (T,) i64: the kernel's work, which the wrapper
+    drops)."""
     T, K4 = geom.shape[:2]
     nb = K4 // TRI_BLK
     dev = geom.device
     best_t = tmax.reshape(T, 1).expand(T, TILE).clone()
     best_i = torch.zeros((T, TILE), dtype=torch.int32, device=dev)
+    n_blk = torch.zeros(T, dtype=torch.int64, device=dev)
     f_all = _features(o_t, d_t)
     for c0 in range(0, T, _MT_TILES):
         c1 = min(T, c0 + _MT_TILES)
@@ -672,6 +679,7 @@ def _mt_plain(o_t, d_t, geom, lbg, tmax):
             if not bool(active.any()):
                 break
             ta = torch.nonzero(active)[:, 0] + c0
+            n_blk[ta] += 1
             g = geom[ta, blk * TRI_BLK:(blk + 1) * TRI_BLK]   # (n, 128, 48)
             ad, _, _, ts, hit = _signed_terms(g, f_all[ta], 0)
             tt = torch.where(hit, ts / torch.where(ad > 0, ad, 1.0), BVH_FAR)
@@ -680,12 +688,12 @@ def _mt_plain(o_t, d_t, geom, lbg, tmax):
             best_t[ta] = torch.where(better, m, best_t[ta])
             best_i[ta] = torch.where(better, (blk * TRI_BLK + am).to(
                 torch.int32), best_i[ta])
-    return best_t, best_i
+    return best_t, best_i, n_blk
 
 
 def _mt_cuda(o_t, d_t, geom, lbg, tmax):
-    """Kernel C launch (csrc/mt_gathered.cu); same contract as the plain
-    twin."""
+    """Kernel C launch (csrc/mt_gathered.cu); the plain twin's outputs
+    without its work count."""
     T, K4 = geom.shape[:2]
     nb = K4 // TRI_BLK
     _check("mt_resolve o_t", o_t, torch.float32, (T, 3, TILE))
@@ -722,7 +730,7 @@ def mt_resolve(o_t, d_t, geom, lbg, tmax):
                          f"(got {lbg.shape[-1]})")
     if _on_cuda("mt_resolve", o_t, d_t, geom, lbg, tmax):
         return _mt_cuda(o_t, d_t, geom, lbg, tmax)
-    return _mt_plain(o_t, d_t, geom, lbg, tmax)
+    return _mt_plain(o_t, d_t, geom, lbg, tmax)[:2]
 
 
 # --------------------------------------------------------------------------
@@ -775,28 +783,6 @@ def _check_retrace(retrace):
     if retrace not in _RETRACE_MODES:
         raise ValueError(f"retrace must be one of {_RETRACE_MODES}, got "
                          f"{retrace!r}")
-
-
-def _finish(bvh8: BVH8, rays: Rays, best_t, best_pk):
-    """≙ JAX _finish with kuv=None: (prim, u, v) of each ray's winning
-    packed leafrow*4+lane, u/v by re-intersecting the winner. best_t
-    (T, 256), BVH_FAR on a miss."""
-    R = rays.o.shape[0]
-    ok = best_t < BVH_FAR
-    wl = torch.where(ok, best_pk >> 2, 0).long().reshape(-1)
-    wk = torch.where(ok, best_pk & 3, 0).long().reshape(-1)
-    okf = ok.reshape(-1)
-    v0, e1, e2 = tri_edges(bvh8.leaf_tris[wl, wk])
-    _, _, uu, vv = moller_trumbore(
-        rays.o, rays.d, v0, e1, e2,
-        torch.full((R,), BVH_FAR, dtype=torch.float32, device=rays.o.device))
-    return Hits(
-        t=torch.where(okf, best_t.reshape(-1), BVH_FAR),
-        u=torch.where(okf, uu, 0.0),
-        v=torch.where(okf, vv, 0.0),
-        prim=torch.where(okf, bvh8.leaf_prim[wl, wk], -1),
-        inst=torch.full((R,), -1, dtype=torch.int32, device=rays.o.device),
-    )
 
 
 def _merge(ov_ray, new: Hits, old: Hits) -> Hits:

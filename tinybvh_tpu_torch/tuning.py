@@ -13,6 +13,8 @@ from dataclasses import dataclass
 
 import torch
 
+from tinybvh_tpu_torch.core.rays import default_device
+
 
 @dataclass(frozen=True)
 class Tuning:
@@ -45,12 +47,12 @@ _warned: set[str] = set()
 
 
 def detect_generation(device=None) -> str:
-    """'h100' for a CUDA device, 'cpu' otherwise. Every CUDA card maps to
-    the h100 row: it is the only GPU row, and is named by the card
-    (torch.cuda.get_device_name) in every measurement."""
-    dev = torch.device(device) if device is not None else (
-        torch.device("cuda") if torch.cuda.is_available()
-        else torch.device("cpu"))
+    """'h100' for a CUDA device, 'cpu' otherwise. device=None means the
+    card and raises RuntimeError where there is none (core.rays.
+    default_device). Every CUDA card maps to the h100 row: it is the
+    only GPU row, and is named by the card (torch.cuda.get_device_name)
+    in every measurement."""
+    dev = default_device(device)
     if dev.type != "cuda":
         return "cpu"
     name = torch.cuda.get_device_name(dev).lower()
