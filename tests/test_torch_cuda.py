@@ -6,13 +6,13 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances (as tests/test_packet2.py:141-160): cull survivor keys and
-counts exactly equal; prim equal; t within rtol = atol = 1e-4; u, v
-within 1e-3. Kernels C and G are held to bit equality (t, row index,
-block mask), and so are kernels D, E and F of the v1 packet engine (t,
-row position or packed winner; leaf lists and counts). All the kernels
-round every multiply and add separately in the twins' order, so they
-are expected to agree bit for bit.
+Every kernel is held to bit equality with its twin (torch.equal on
+every output): A (survivor keys in worklist order, counts), B (t, row
+index, u, v, prim), C (t, row index), G (block mask), and D, E and F of
+the v1 packet engine (t, row position or packed winner; leaf lists and
+counts). All the kernels round every multiply and add separately in the
+twins' order. Against the brute-force oracle: prim equal, t within
+rtol = atol = 1e-4.
 """
 
 import numpy as np
@@ -95,12 +95,43 @@ def test_cull_kernel_matches_plain(scene, monkeypatch, span_mult,
         assert bool((c_ref > args[6]).any())
 
 
-@pytest.mark.parametrize("any_hit,pack", [(False, 2), (True, 2),
-                                          (False, 1)])
-def test_mt_kernel_matches_plain(scene, monkeypatch, any_hit, pack):
-    """Kernel B on the same offsets/gates as the plain twin; pack=1 is the
-    one-triangle-per-row table layout."""
+@pytest.mark.parametrize("case", ["empty_group", "max_blocks_256"])
+def test_cull_kernel_edge_groups_match_plain(scene, monkeypatch, case):
+    """Kernel A on a group whose worklist is empty (nblk 0: every tile of
+    it gets count 0 and an all-I32MAX list), and on worklists of depth 256
+    with max_leaves 16 (k_cap 4 overflows; counting goes on past it)."""
     _, bvh = scene
+    o, d = _camera_rays()
+    calls = _capture(monkeypatch, "cull")
+    kw = (dict(max_leaves=256) if case == "empty_group"
+          else dict(max_leaves=16, max_blocks=256))
+    _trace(bvh, make_rays(o, d, device="cuda"), **kw)
+    args = list(calls[0])
+    if case == "empty_group":
+        assert int(args[0][0]) > 0
+        args[0] = args[0].clone()
+        args[0][0] = 0
+    else:
+        assert args[1].shape[1] == 256
+    k_ref, c_ref = packet2._cull_plain(*args)
+    _assert_equal_outputs(packet2._cull_cuda(*args), (k_ref, c_ref))
+    if case == "empty_group":
+        assert not bool(c_ref[:packet2.TB].any())
+        assert bool((k_ref[:packet2.TB] == packet2._I32MAX).all())
+    else:
+        assert bool((c_ref > args[6]).any())
+
+
+def _assert_equal_outputs(got, ref):
+    """Every output of a kernel equals its twin's (torch.equal)."""
+    torch.cuda.synchronize()
+    assert len(got) == len(ref)
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), f"output {k} differs from the twin"
+
+
+def _mt_args(bvh, monkeypatch, any_hit, pack, tri_blk=256):
+    """Kernel B's arguments from one packet trace of the camera tiles."""
     o, d = _camera_rays()
     aux = (bvh.packet_aux if pack == 2 else
            packet2.build_packet_aux_host(bvh._bvh8_host, pack=1,
@@ -108,19 +139,124 @@ def test_mt_kernel_matches_plain(scene, monkeypatch, any_hit, pack):
     calls = _capture(monkeypatch, "mt_fused")
     packet2.intersect_packets2(bvh.bvh8, aux, make_rays(o, d, device="cuda"),
                                max_leaves=512, retrace=False,
-                               any_hit=any_hit,
+                               any_hit=any_hit, tri_blk=tri_blk,
                                t_max=20.0 if any_hit else 1e30)
     (args,) = calls
-    got = packet2._mt_fused_cuda(*args)
+    assert args[8] == tri_blk
+    return args
+
+
+@pytest.mark.parametrize("any_hit,pack", [(False, 2), (True, 2),
+                                          (False, 1)])
+def test_mt_kernel_matches_plain(scene, monkeypatch, any_hit, pack):
+    """Kernel B on the same offsets/gates as the plain twin, every output
+    bit for bit; pack=1 is the one-triangle-per-row table layout."""
+    _, bvh = scene
+    args = _mt_args(bvh, monkeypatch, any_hit, pack)
+    _assert_equal_outputs(packet2._mt_fused_cuda(*args),
+                          packet2._mt_fused_plain(*args)[:5])
+
+
+def _edge_tiles(args):
+    """Kernel B's arguments with five tiles edited: tile 0 has no key,
+    tile 1 a ragged last super-block (count not a multiple of tri_blk //
+    rps), tile 2 NaN gates, tile 3 its rays reversed (no ray hits), tile
+    4 an initial t of +inf (a miss of kFar then wins, and zero triangles
+    may not be skipped)."""
+    (offs, counts, lbg, tmax, ff, t0, gtab, k_cap, tri_blk, rps, pack,
+     any_hit) = args
+    counts, lbg, ff, t0 = (x.clone() for x in (counts, lbg, ff, t0))
+    kpb = tri_blk // rps
+    counts[0] = 0
+    counts[1] = kpb + kpb // 2 + 1
+    assert counts[1] <= k_cap and counts[1] % kpb
+    lbg[2] = float("nan")
+    ff[3, :6] = -ff[3, :6]
+    t0[4] = float("inf")
+    return (offs, counts, lbg, tmax, ff, t0, gtab, k_cap, tri_blk, rps,
+            pack, any_hit)
+
+
+@pytest.mark.parametrize("tri_blk,pack,any_hit", [
+    (128, 2, False), (256, 2, False), (128, 1, True), (256, 1, True)])
+def test_mt_kernel_edge_tiles_match_plain(scene, monkeypatch, tri_blk, pack,
+                                          any_hit):
+    """Kernel B on tiles that reach its skips and gates (_edge_tiles),
+    tri_blk 128 and 256, pack 2 closest hit and pack 1 any-hit: every
+    output bit for bit."""
+    _, bvh = scene
+    args = _edge_tiles(_mt_args(bvh, monkeypatch, any_hit, pack, tri_blk))
     ref = packet2._mt_fused_plain(*args)[:5]
-    torch.cuda.synchronize()
-    t, i, u, v, p = (x.cpu().numpy() for x in got)
-    tr, ir, ur, vr, pr = (x.cpu().numpy() for x in ref)
-    np.testing.assert_array_equal(p, pr)
-    np.testing.assert_array_equal(i, ir)
-    np.testing.assert_allclose(t, tr, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(u, ur, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(v, vr, rtol=1e-3, atol=1e-3)
+    _assert_equal_outputs(packet2._mt_fused_cuda(*args), ref)
+    t, _, _, _, p = ref
+    assert torch.equal(t[0], args[5][0]) and bool((p[0] == -1).all())
+    assert bool((p[3] == -1).all())
+    assert bool((t[4] <= 1e30).all())
+    assert bool((p[5:] >= 0).any())
+
+
+def test_mt_kernel_many_tiles_match_plain(scene, monkeypatch):
+    """Kernel B on 2,080 tiles (the 16 camera tiles repeated, each cut to
+    a random count of keys): more tiles than the tile-order pre-pass has
+    threads, with every super-block count from 0 to k_cap / kpb. Every
+    output bit for bit."""
+    _, bvh = scene
+    args = list(_mt_args(bvh, monkeypatch, False, 2, 128))
+    T = args[0].shape[0]
+    reps = 130
+    for k in range(6):
+        args[k] = args[k].repeat((reps,) + (1,) * (args[k].dim() - 1))
+    rng = np.random.default_rng(11)
+    args[1] = torch.from_numpy(rng.integers(
+        0, args[7] + 1, T * reps).astype(np.int32)).cuda()
+    assert args[0].shape[0] > 2048
+    _assert_equal_outputs(packet2._mt_fused_cuda(*args),
+                          packet2._mt_fused_plain(*args)[:5])
+
+
+def far_hit_rows(pack):
+    """gtab rows of two segment keys (rps = 16 // pack rows each): key 0's
+    triangles are hit by every ray at t = 1e31, past BVH_FAR (only the
+    constant feature's lane 9 of each dot is set: det 1, u' = v' = 0.25,
+    t' = 1e31), prim id 7; key 1's triangles are all zero, prim id 99.
+    Returns (gtab (2 rps, 128) f32, rps). Also used by
+    tests/test_torch_packet2.py."""
+    rps = 16 // pack
+    g = np.zeros((2 * rps, 128), np.float32)
+    for base in ((0, 48) if pack == 2 else (0,)):
+        for lane, val in ((9, 1.0), (21, 0.25), (33, 0.25), (45, 1e31)):
+            g[:rps, base + lane] = val
+    pid = np.array([7, 99], np.int32).view(np.float32)
+    for col in ((96, 97) if pack == 2 else (48,)):
+        g[:rps, col], g[rps:, col] = pid
+    return g, rps
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_mt_kernel_far_hits_take_the_first_dead_row(pack):
+    """Kernel B on one tile whose only live key holds triangles hit at
+    t = 1e31, past kFar, with an initial t of +inf: the kernel walks no
+    dead row, yet the first one must win as in the twin (t = kFar, its
+    row and prim id; tests/test_torch_packet2.py holds the twin to JAX)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    g, rps = far_hit_rows(pack)
+    gtab = torch.zeros((2 * rps + 8, 128), device="cuda")
+    gtab[:2 * rps] = torch.from_numpy(g)
+    k_cap = 128 // rps
+    offs = torch.full((1, k_cap), rps, dtype=torch.int32, device="cuda")
+    offs[0, 0] = 0
+    rng = np.random.default_rng(5)
+    ff = torch.from_numpy(rng.normal(size=(1, 12, 256)).astype(np.float32))
+    ff[:, 9], ff[:, 10:] = 1.0, 0.0
+    args = (offs, torch.ones(1, dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 1), device="cuda"),
+            torch.full((1,), 1e30, device="cuda"), ff.cuda(),
+            torch.full((1, 256), float("inf"), device="cuda"), gtab, k_cap,
+            128, rps, pack, False)
+    ref = packet2._mt_fused_plain(*args)[:5]
+    _assert_equal_outputs(packet2._mt_fused_cuda(*args), ref)
+    assert bool((ref[1] == rps).all()) and bool((ref[4] == 99).all())
 
 
 def test_launch_rejects_bad_inputs(scene, monkeypatch):

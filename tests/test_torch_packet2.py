@@ -32,6 +32,7 @@ from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
 from tinybvh_tpu_torch.traverse import packet2 as p2  # noqa: E402
 from tinybvh_tpu_torch.traverse.packet import _tile_planes  # noqa: E402
 from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront  # noqa: E402
+from test_torch_cuda import far_hit_rows  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -181,6 +182,38 @@ def test_mt_resolve_fused_matches_jax(scene, monkeypatch, any_hit):
     tw, iw, uw, vw, pw = want
     assert_hits_match(p, t, u, v, pw, tw, uw, vw)
     assert (_np(p) >= 0).any()
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_far_hits_yield_to_the_first_dead_row(pack):
+    """One tile with one live key (a ragged super-block of 128 rows) whose
+    triangles every ray hits at t = 1e31, and an initial t of +inf: the
+    first dead row (t = BVH_FAR, its prim id) then wins, in the JAX
+    kernel and in the port's twin alike. Kernel B walks no dead rows and
+    re-creates this win (tests/test_torch_cuda.py holds it to the twin)."""
+    g, rps = far_hit_rows(pack)
+    k_cap = 128 // rps
+    rng = np.random.default_rng(5)
+    o_t = rng.normal(size=(1, 3, 256)).astype(np.float32)
+    d_t = rng.normal(size=(1, 3, 256)).astype(np.float32)
+    offs = np.full((1, k_cap), rps, np.int32)
+    offs[0, 0] = 0
+    ins = dict(offs=offs, counts=np.ones(1, np.int32),
+               lbg=np.zeros((1, 1, 1), np.float32),
+               tmax=np.full((1, 1), 1e30, np.float32), o_t=o_t, d_t=d_t,
+               gtab_flat=g)
+    kw = dict(k_cap=k_cap, tri_blk=128, pack=pack, rps=rps)
+    t0 = np.full((1, 256), np.inf, np.float32)
+    got = p2.mt_resolve_fused(
+        **{k: torch.from_numpy(v) for k, v in ins.items()},
+        t0=torch.from_numpy(t0), **kw)
+    want = jp2.mt_resolve_fused(
+        **{k: jnp.asarray(v) for k, v in ins.items()}, t0=jnp.asarray(t0),
+        interpret=True, **kw)
+    for x in (got, want):
+        t, i, u, v, p = map(_np, x)
+        assert (t == np.float32(1e30)).all() and (i == rps).all()
+        assert (p == 99).all() and (u == 0).all() and (v == 0).all()
 
 
 def test_intersect_sorted_matches_jax_and_oracle(scene):

@@ -94,10 +94,12 @@ _SIGNATURES = {
     # cull.cu
     "tbvh_cull": [_P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _P],
+    "tbvh_cull_occupancy": [_P],
     # mt_fused.cu
     "tbvh_mt_fused": [_P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _P],
+    "tbvh_mt_fused_occupancy": [_I, _P],
     # mt_gathered.cu
     "tbvh_mt_gathered": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # cull_blocks.cu
@@ -127,6 +129,18 @@ def kernels():
             fn.restype = ctypes.c_int
         _kernels = lib
     return _kernels
+
+
+OCCUPANCY = ("threads", "registers", "static_smem", "dynamic_smem",
+             "local_bytes", "ctas_per_sm")
+
+
+def occupancy(entry: str, *args) -> dict:
+    """The resources of one kernel as its C entry `entry` reports them
+    (common.cuh kernel_occupancy): OCCUPANCY -> int."""
+    out = (ctypes.c_int * len(OCCUPANCY))()
+    check(getattr(kernels(), entry)(*args, ctypes.addressof(out)), entry)
+    return dict(zip(OCCUPANCY, out))
 
 
 def check(err: int, name: str) -> None:

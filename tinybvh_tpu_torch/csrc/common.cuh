@@ -45,7 +45,8 @@ __device__ __forceinline__ bool frustum_outside(const float* d,
   return outside;
 }
 
-// Triple-product Möller–Trumbore terms of kernels B and C: det, u', v', t'
+// Triple-product Möller–Trumbore terms of kernel C (kernel B's tri_terms in
+// mt_fused.cu computes the same terms from float4 reads): det, u', v', t'
 // as 12-lane dots of one triangle's 48-lane row g ([G_det|G_u|G_v|G_t])
 // with the ray features f = [d, o x d, o, 1, 0, 0], in lane order, then
 // sign-flipped so det >= 0. Twin: packet2.py _signed_terms.
@@ -130,6 +131,25 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   for (int w = 1; w < kTile / 32; ++w) r = nan_max(r, red[w]);
   __syncthreads();  // red is reused by the next call
   return r;
+}
+
+// Resources of a kernel at its launch shape (threads per CTA, dynamic
+// shared bytes), for the occupancy line of chip_smoke.py: out = {threads,
+// registers per thread, static shared bytes, dynamic shared bytes, local
+// (spill) bytes per thread, resident CTAs per SM}. Returns a cudaError_t.
+inline int kernel_occupancy(const void* fn, int threads, int dyn_smem,
+                            int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+                                                        dyn_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[6] = {threads, a.numRegs, (int)a.sharedSizeBytes, dyn_smem,
+                       (int)a.localSizeBytes, ctas};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // namespace tbvh

@@ -27,7 +27,8 @@
 // (jnp.argmin); across blocks only a strictly smaller t replaces the best.
 // The hit test and the IEEE division ts / ad follow the JAX kernel; every
 // multiply and add is rounded separately in lane order (common.cuh
-// signed_terms, shared with kernel B), so results equal the plain PyTorch
+// signed_terms; kernel B's tri_terms in mt_fused.cu computes the same
+// terms from float4 reads), so results equal the plain PyTorch
 // twin's bit for bit. A simple kernel: cp.async double buffering is later
 // work.
 #include "common.cuh"
