@@ -50,12 +50,36 @@ Phases (each prints one line; any failure raises and exits non-zero):
      2048 leaves, pair cap 512: see V1_SHADOW)
      and the rays, shuffled inside each tile, through
      intersect_packets_sorted;
+ 12. inst512 (bench.py:779-788): 8x8x8 instances of the random64k BLAS,
+     512x512 camera rays in tile order through the bucketed TLAS engine
+     (tlas/packet.py: kernels A and B once per candidate round and per
+     escalation pass; INST512, escalation over the whole BLAS, the h100
+     row's wavefront cap), rounds raised to the per-tile candidate
+     maximum + 1 if that exceeds 28; TLAS build time, hit rate, MRays/s,
+     launches per call, zero residual overflow, and the lockstep
+     two-level oracle on 2048 middle rays (t-agree, inst-agree and
+     prim-agree >= 0.999, checksum within 1%); A and B against their
+     twins (torch.equal) on the round with the most live tiles and on an
+     escalation pass, timed at those shapes; a torch.profiler breakdown
+     of one call (kernels A+B, other kernels, the device's idle share);
+ 12b. inst8 (bench.py:772-778): 2x2x2 instances through the bucketed
+     engine (INST8), the per-instance engine, TLAS.intersect (16384
+     rays), the two-level wavefront at cap 6 (timed; gated only if it
+     does not overflow) and shadow segments from a light above the grid
+     through is_occluded_tlas_packets2, each against the lockstep oracle
+     (the two engines with a profiler breakdown);
+ 13. refit per frame (bench.py:304-318): refit_bvh8 + build_packet_aux
+     on the card for a deformed random64k, timed; the moved camera rays
+     through intersect_packets2 on the refit tables and, after BVH.refit,
+     through BVH.intersect, each gated by the brute-force oracle (the
+     frame and the trace with a profiler breakdown);
 then a JSON line of the eight kernels (launches counted on each kernel's
 own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
 11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
-drives on that trace's inputs, since no path of the package runs them),
-each with its time, its plain twin's, and its bound (BOUND_RATES), and
-as the last line {"ok": true, "device": {...}}.
+drives on that trace's inputs, since no path of the package runs them;
+A and B also carry tlas_launches, their launches in one phase 12
+bucketed call), each with its time, its plain twin's, and its bound
+(BOUND_RATES), and as the last line {"ok": true, "device": {...}}.
 
 Precision: TF32 stays off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False); the kernels use no tensor cores.
@@ -511,8 +535,10 @@ def phase_api(bvh, rays, center, extent, build_s, gpu_line):
         bvh.bvh8, bvh.packet_aux, rays, lo, hi, **pk), dev)
     shadow_pk = wall_s(lambda: packet2.occluded_direction_sorted(
         bvh.bvh8, bvh.packet_aux, srays, cutoff, **pk), dev)
+    tables_s = wall_s(lambda: packet2.build_packet_aux(bvh.bvh8), dev)
     print(f"phase 4 api: {bvh.tris.shape[0]} tris, {R} rays, build {build_s:.3f}"
-          f" s, hit rate {hit_rate:.4f}, primary {R / prim_s / 1e6:.3f} "
+          f" s (packet tables alone {tables_s * 1e3:.3f} ms warm), hit rate "
+          f"{hit_rate:.4f}, primary {R / prim_s / 1e6:.3f} "
           f"MRays/s, shadow {R / shadow_s / 1e6:.3f} MRays/s (occluded "
           f"{float(occ.float().mean()):.4f}) with the wavefront retrace "
           f"(cap {tun.wf_cap_factor}; peak device memory {mem[0]:.3f} / "
@@ -1070,6 +1096,464 @@ def phase_v1(bvh, rays, center, extent, gpu_line):
     return out, launches
 
 
+# bench.py:772-788: the bucketed engine's budgets on the instance grids
+INST512 = dict(n=(8, 8, 8), rounds=28, max_leaves=1024, max_blocks=256,
+               retrace="packet", retrace_blocks=256)     # retrace_ml "full"
+INST8 = dict(n=(2, 2, 2), rounds=6, max_leaves=1024, max_blocks=256,
+             retrace="packet", retrace_ml=4096, retrace_blocks=256)
+INST_W = 512
+
+
+def full_retrace_ml(bvh8):
+    """bench.py:564-569: an escalation budget covering every segment of
+    the BLAS (4 x ceil(n_segs / 8) x 8 leaves)."""
+    n_segs = -(-int(bvh8.leaf_tris.shape[0]) // 4)
+    return 4 * (-(-n_segs // 8) * 8), n_segs
+
+
+def instance_scene(bvh, tris, n, dev, W=INST_W):
+    """bench.py's _bench_instances scene: nx*ny*nz translated instances of
+    one BLAS spaced at 1.15 x its extent, the TLAS and its packet tables
+    built (timed), and W x W camera rays over the
+    grid in 16x16 tile order."""
+    from tinybvh_tpu_torch import make_rays
+    from tinybvh_tpu_torch.tlas.packet import build_tlas_packet
+
+    nx, ny, nz = n
+    lo = tris.reshape(-1, 3).min(0)
+    ex = tris.reshape(-1, 3).max(0) - lo
+    mats = []
+    for i in range(nx):
+        for j in range(ny):
+            for k in range(nz):
+                m = np.eye(4, dtype=np.float32)
+                m[:3, 3] = ex * 1.15 * np.array([i, j, k], np.float32)
+                mats.append(m)
+    mats = np.stack(mats)
+    t0 = time.perf_counter()
+    tp = build_tlas_packet([bvh.bvh8], mats)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    whi = lo + ex * np.array([1.15 * (nx - 1) + 1, 1.15 * (ny - 1) + 1,
+                              1.15 * (nz - 1) + 1])
+    o, d, center, extent = camera_rays(lo, whi, W, W)
+    return tp, mats, make_rays(o, d, device=dev), build_s, center, extent
+
+
+def middle(R, n, dev):
+    """n consecutive rays from the middle of the batch (bench.py:617)."""
+    import torch
+
+    return torch.arange(R // 2 - n // 2, R // 2 + n // 2, device=dev)
+
+
+def tlas_oracle(tp, rays, idx):
+    """The lockstep two-level traversal on rays[idx], with its wall time
+    and step count."""
+    from tinybvh_tpu_torch.tlas.instance import intersect_tlas8
+
+    dev = rays.o.device
+    sync(dev)
+    t0 = time.perf_counter()
+    ref, steps = intersect_tlas8(tp.tlas, rays.take(idx), with_steps=True)
+    sync(dev)
+    return ref, steps, time.perf_counter() - t0
+
+
+def tlas_gates(h, ref, what):
+    """bench.py:606-637: t agreement at 1% relative t (both miss, or both
+    hit within it), instance agreement, the hit-t checksum ratio; and
+    prim agreement. Raises below 0.999, or outside 1%."""
+    import torch
+
+    both_miss = (h.prim < 0) & (ref.prim < 0)
+    both_hit = (h.prim >= 0) & (ref.prim >= 0)
+    t_ok = (h.t - ref.t).abs() <= 0.01 * torch.clamp(ref.t.abs(), min=1e-9)
+    t_agree = float((both_miss | (both_hit & t_ok)).float().mean())
+    inst_agree = float((h.inst == ref.inst).float().mean())
+    prim_agree = float((h.prim == ref.prim).float().mean())
+    s_ours = float(h.t[h.prim >= 0].double().sum())
+    s_ref = float(ref.t[ref.prim >= 0].double().sum())
+    if s_ref <= 0.0:
+        raise AssertionError(f"{what}: the oracle subset hits nothing")
+    ratio = s_ours / s_ref
+    if not (t_agree >= 0.999 and inst_agree >= 0.999 and prim_agree >= 0.999
+            and abs(ratio - 1.0) <= 0.01):
+        raise AssertionError(f"{what}: oracle t-agree {t_agree} inst-agree "
+                             f"{inst_agree} prim-agree {prim_agree} checksum "
+                             f"ratio {ratio}")
+    return (f"t-agree {t_agree:.5f} inst-agree {inst_agree:.5f} prim-agree "
+            f"{prim_agree:.5f} checksum {ratio:.6f}")
+
+
+def breakdown(fn, dev, wall_ms):
+    """Where one call of fn() spends its time, from one call under
+    torch.profiler (CPU and CUDA activities): kernels A and B's device
+    time (csrc/cull.cu cull_kernel, csrc/mt_fused.cu tile_order and
+    mt_fused_kernel), all other device time, the
+    device's busy share of wall_ms (an unprofiled call's median wall
+    time) and the four torch kernels with the most device time. "not
+    measured" where the profiler saw no device time (off the card, or
+    records dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return "breakdown not measured (no card)"
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    # device-side events only (kernels, copies): a CPU op's self device
+    # time repeats the kernels it launched
+    evs = [e for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")
+           and getattr(e, "self_device_time_total", 0) > 0]
+    if not evs:
+        return "breakdown not measured (the profiler saw no device time)"
+    ms = {e.key: e.self_device_time_total / 1e3 for e in evs}
+
+    def is_ab(name):
+        return any(k in name for k in ("cull_kernel", "mt_fused_kernel",
+                                       "tile_order"))
+
+    ours = sum(v for k, v in ms.items() if is_ab(k))
+    total = sum(ms.values())
+    top = sorted(((v, k) for k, v in ms.items() if not is_ab(k)),
+                 reverse=True)[:4]
+    return (f"device {total:.2f} ms of {wall_ms:.2f} ms wall (busy "
+            f"{total / wall_ms:.3f}, idle {1 - total / wall_ms:.3f}): "
+            f"kernels A+B {ours:.2f} ms, other kernels {total - ours:.2f} "
+            "ms, most: " + ", ".join(f"{k[:48]} {v:.2f}" for v, k in top))
+
+
+def live_tiles(b):
+    """Tiles of kernel B's arguments `b` with at least one key."""
+    return int((b[1] > 0).sum())
+
+
+def round_kernels(rec, k_first, gpu_line, what, n_kernel=20):
+    """Kernels A and B against their twins (torch.equal on every output)
+    on two captured calls of a bucketed trace: the first-pass round with
+    the most live tiles (k_cap = k_first) and the escalation pass with
+    the most; each timed by CUDA events and as device time (a CUDA graph
+    of the calls), with its bound. Prints one line per call."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    dev = rec["cull"][0][2].device
+    on_gpu = dev.type == "cuda"
+    first = [i for i, b in enumerate(rec["mt_fused"]) if b[7] == k_first]
+    esc = [i for i, b in enumerate(rec["mt_fused"]) if b[7] > k_first]
+    if not first or not esc:
+        raise AssertionError(f"{what}: {len(first)} first passes, {len(esc)}"
+                             " escalation passes captured")
+    for label, calls in (("round", first), ("escalation", esc)):
+        i = max(calls, key=lambda j: live_tiles(rec["mt_fused"][j]))
+        a, b = rec["cull"][i], rec["mt_fused"][i]
+        if a[6] != b[7]:
+            raise AssertionError(f"{what}: cull and resolve calls unpaired")
+        kern_a = packet2._cull_cuda if on_gpu else packet2._cull_plain
+        ref_a = packet2._cull_plain(*a)
+        got_a = kern_a(*a)
+        err_a = equal_twin(f"cull ({label})", got_a, ref_a)
+
+        def plain_b(*args):
+            return packet2._mt_fused_plain(*args)[:5]
+
+        kern_b = packet2._mt_fused_cuda if on_gpu else plain_b
+        *ref_b, n_sb = packet2._mt_fused_plain(*b)
+        got_b = kern_b(*b)
+        err_b = equal_twin(f"mt_fused ({label})", got_b, ref_b)
+        r = {}
+        for name, kern, plain, args, got, units, err in (
+                ("cull", kern_a, packet2._cull_plain, a, got_a,
+                 int(a[0].sum()) * packet2.LANES * packet2.TB, err_a),
+                ("mt_fused", kern_b, plain_b, b, got_b,
+                 fused_tests(b, n_sb), err_b)):
+            r[name] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: kern(*args), dev, n_kernel),
+                device_ms=(device_ms(lambda: kern(*args), n_kernel)
+                           if on_gpu else float("nan")),
+                plain_ms=time_ms(lambda: plain(*args), dev, 1),
+                **bound(name, args, got, units))
+        shape = (f"T={b[0].shape[0]} ({live_tiles(b)} live) k_cap={b[7]} "
+                 f"max_blocks={a[1].shape[1]} tri_blk={b[8]}")
+        print(f"{what} kernels, {label} pass: {shape}; " + "; ".join(
+            f"{k} equal to its twin (max_abs_err {v['max_abs_err']}), "
+            f"kernel {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, plain "
+            f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bound_by']})" for k, v in r.items())
+            + f" [{gpu_line}]", flush=True)
+
+
+def phase_inst512(bvh, tris, gpu_line):
+    """bench.py's inst512 section: 512 instances of the BLAS through the
+    bucketed engine (kernels A and B once per candidate round and per
+    escalation pass), gated by the lockstep two-level oracle on 2048 rays
+    from the middle of the batch; A and B against their twins on the
+    round with the most live tiles and on an escalation pass. Returns the
+    launch counts of one bucketed call."""
+    from tinybvh_tpu_torch.traverse import packet2
+    from tinybvh_tpu_torch.tlas.packet import (
+        intersect_tlas_packets2_bucketed, tile_candidates,
+    )
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    start = time.perf_counter()
+    dev = bvh.device
+    tp, _, rays, build_s, _, _ = instance_scene(bvh, tris, INST512["n"], dev)
+    R = rays.o.shape[0]
+    rml, n_segs = full_retrace_ml(bvh.bvh8)
+    (_, _, n_cand), = tile_candidates(tp, rays, 1)
+    cand_max = int(n_cand.max())
+    rounds = max(INST512["rounds"], cand_max + 1)
+    kw = dict(rounds=rounds, max_leaves=INST512["max_leaves"],
+              max_blocks=INST512["max_blocks"], retrace=INST512["retrace"],
+              retrace_ml=rml, retrace_blocks=INST512["retrace_blocks"],
+              wf_cap_factor=get_tuning(device=dev).wf_cap_factor)
+
+    def trace():
+        return intersect_tlas_packets2_bucketed(tp, rays, **kw)
+
+    reset_launches()
+    h, ovf = trace()
+    launches = read_launches(dev, ("cull", "mt_fused"), "the bucketed trace")
+    n_ovf = int(ovf.sum())
+    if n_ovf:
+        raise AssertionError(f"inst512: {n_ovf} tiles with residual overflow")
+    hit_rate = float((h.prim >= 0).float().mean())
+    if not 0.0 < hit_rate < 1.0:
+        raise AssertionError(f"inst512 hit rate {hit_rate}")
+    idx = middle(R, ORACLE_RAYS, dev)
+    ref, steps, oracle_s = tlas_oracle(tp, rays, idx)
+    gates = tlas_gates(h.take(idx), ref, "inst512")
+    rec, restore = capture(packet2, ("cull", "mt_fused"))
+    try:
+        trace()
+    finally:
+        restore()
+    round_kernels(rec, INST512["max_leaves"] // 4, gpu_line,
+                  "phase 12 inst512")
+    del rec
+    call_s = wall_s(trace, dev)
+    rate = R / call_s / 1e6
+    print(f"phase 12 inst512 breakdown of one call: "
+          f"{breakdown(trace, dev, call_s * 1e3)} [{gpu_line}]", flush=True)
+    print(f"phase 12 inst512: {len(tp.blas_of)} instances of "
+          f"{tris.shape[0]} tris ({len(tp.blas_of) * tris.shape[0]} in all; "
+          f"BLAS {bvh.bvh8.leaf_tris.shape[0]} leaves, n_segs {n_segs}), "
+          f"{R} rays, TLAS build {build_s:.3f} s, per-tile candidate max "
+          f"{cand_max} -> rounds {rounds}, escalation {rml} leaves; hit rate "
+          f"{hit_rate:.4f}, {rate:.3f} MRays/s (median of 3 after a warm-up),"
+          f" launches per call {launches}, residual overflow 0; lockstep "
+          f"oracle on {ORACLE_RAYS} rays: {steps} steps, {oracle_s:.2f} s, "
+          f"{gates}; {time.perf_counter() - start:.1f} s [{gpu_line}]",
+          flush=True)
+    return launches
+
+
+def phase_inst8(bvh, tris, gpu_line):
+    """bench.py's inst8 section: 2x2x2 instances through the bucketed
+    engine, the per-instance engine and TLAS.intersect (the API: the
+    two-level wavefront at caps 4 and 12, then lockstep), the two-level
+    wavefront at cap 6 (bench.py:675-679) and shadow segments through
+    is_occluded_tlas_packets2, each gated by the lockstep oracle."""
+    import torch
+    from tinybvh_tpu_torch import TLAS, make_rays
+    from tinybvh_tpu_torch.tlas import instance
+    from tinybvh_tpu_torch.tlas.packet import (
+        intersect_tlas_packets2, intersect_tlas_packets2_bucketed,
+        is_occluded_tlas_packets2, tile_candidates,
+    )
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    start = time.perf_counter()
+    dev = bvh.device
+    cap = get_tuning(device=dev).wf_cap_factor
+    tp, mats, rays, build_s, center, extent = instance_scene(
+        bvh, tris, INST8["n"], dev)
+    R = rays.o.shape[0]
+    idx = middle(R, ORACLE_RAYS, dev)
+    ref, steps, _ = tlas_oracle(tp, rays, idx)
+    (_, _, n_cand), = tile_candidates(tp, rays, 1)
+    cand_max = int(n_cand.max())
+    rounds = max(INST8["rounds"], cand_max + 1)
+    kw = {k: v for k, v in INST8.items() if k != "n"}
+    kw.update(rounds=rounds, wf_cap_factor=cap)
+    rml, _ = full_retrace_ml(bvh.bvh8)
+    parts = []
+
+    def bucketed():
+        return intersect_tlas_packets2_bucketed(tp, rays, **kw)
+
+    def per_instance():
+        return intersect_tlas_packets2(
+            tp, rays, max_leaves=INST8["max_leaves"],
+            max_blocks=INST8["max_blocks"], retrace="packet",
+            retrace_ml=rml, retrace_blocks=INST8["retrace_blocks"])
+
+    hits = {}
+    for what, fn in (("bucketed", bucketed), ("per-instance", per_instance)):
+        h, ovf = fn()
+        if int(ovf.sum()):
+            raise AssertionError(f"inst8 {what}: {int(ovf.sum())} tiles "
+                                 "with residual overflow")
+        hits[what] = h
+        gates = tlas_gates(h.take(idx), ref, f"inst8 {what}")
+        call_s = wall_s(fn, dev)
+        parts.append(f"{what} {R / call_s / 1e6:.3f} MRays/s, {gates}, "
+                     f"{breakdown(fn, dev, call_s * 1e3)}")
+
+    # the API on the middle 16384 rays; the oracle's rays lie inside
+    n_api = min(16384, R)
+    api_idx = middle(R, n_api, dev)
+    tlas = TLAS([bvh], mats)
+    fallbacks = []
+    real = instance.intersect_tlas8
+
+    def counted(*args, **kwargs):
+        fallbacks.append(1)
+        return real(*args, **kwargs)
+
+    instance.intersect_tlas8 = counted
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        h_api = tlas.intersect(rays.take(api_idx))
+        sync(dev)
+        api_s = time.perf_counter() - t0
+    finally:
+        instance.intersect_tlas8 = real
+    off = (n_api - ORACLE_RAYS) // 2
+    gates = tlas_gates(h_api.take(torch.arange(off, off + ORACLE_RAYS,
+                                               device=dev)), ref, "inst8 api")
+    engine = "lockstep after wavefront overflow" if fallbacks else "wavefront"
+    parts.append(f"TLAS.intersect on {n_api} rays ({engine}) {api_s:.2f} s, "
+                 f"{gates}")
+
+    def wavefront():
+        return instance.intersect_tlas_wavefront(tp.tlas, rays, cap_factor=6)
+
+    h_wf, wf_ovf = wavefront()
+    wf_s = wall_s(wavefront, dev)
+    if wf_ovf:
+        wf_note = "frontier overflow: inexact, not gated (as in JAX)"
+    else:
+        wf_note = tlas_gates(h_wf.take(idx), ref, "inst8 wavefront")
+    parts.append(f"wavefront cap 6 {R / wf_s / 1e6:.3f} MRays/s, {wf_note}")
+
+    # shadow segments from a light above the grid to the bucketed hits
+    cutoff = 1.0 - 1e-3
+    hb = hits["bucketed"]
+    ht = torch.where(hb.prim >= 0, hb.t, torch.ones_like(hb.t))
+    pts = rays.o + ht[:, None] * rays.d
+    light = torch.as_tensor((center + np.array([0, 2.0, 0]) * extent).astype(
+        np.float32), device=dev)
+
+    def occluded():
+        return is_occluded_tlas_packets2(
+            tp, light, pts, cutoff, max_leaves=INST8["max_leaves"],
+            max_blocks=INST8["max_blocks"], wf_cap_factor=cap)
+
+    occ, sovf = occluded()
+    if int(sovf.sum()):
+        raise AssertionError(f"inst8 shadow: {int(sovf.sum())} tiles with "
+                             "residual overflow")
+    srays = make_rays(light.expand_as(pts), pts - light)
+    sref, _, _ = tlas_oracle(tp, srays, idx)
+    occ_ref = (sref.prim >= 0) & (sref.t < cutoff)
+    occ_agree = float((occ[idx] == occ_ref).float().mean())
+    if occ_agree < 0.999:
+        raise AssertionError(f"inst8 shadow: lockstep agreement {occ_agree}")
+    parts.append(f"shadow {R / wall_s(occluded, dev) / 1e6:.3f} MRays/s "
+                 f"(occluded {float(occ.float().mean()):.4f}), lockstep "
+                 f"segment agreement {occ_agree:.5f}")
+    print(f"phase 12b inst8: {len(tp.blas_of)} instances, {R} rays, TLAS "
+          f"build {build_s:.3f} s, per-tile candidate max {cand_max} -> "
+          f"rounds {rounds}; lockstep oracle {steps} steps; "
+          f"{'; '.join(parts)}; residual overflow 0; "
+          f"{time.perf_counter() - start:.1f} s [{gpu_line}]", flush=True)
+
+
+def phase_refit(bvh, tris, rays, gpu_line):
+    """bench.py's per-frame refit row (bench.py:304-318): refit_bvh8 and
+    build_packet_aux on the card for a deformed random64k (anisotropic
+    scale, translation, seeded per-vertex jitter, as
+    tests/test_builder.py:175-178), timed; the phase 4 camera rays, moved
+    with the geometry, through intersect_packets2 on the refit tables;
+    then BVH.refit + BVH.intersect through the API. Both gated by the
+    brute-force oracle over the moved triangles."""
+    import torch
+    from tinybvh_tpu_torch import BVH, make_rays
+    from tinybvh_tpu_torch.builders.refit import bvh8_refit_plan, refit_bvh8
+    from tinybvh_tpu_torch.traverse import packet2
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    start = time.perf_counter()
+    dev = rays.o.device
+    tun = get_tuning(device=dev)
+    scale = np.float32([1.3, 0.7, 1.0])
+    shift = np.float32([2.0, -1.0, 0.5])
+    rng = np.random.default_rng(0)
+    moved = (tris * scale + shift + rng.normal(
+        scale=0.02, size=tris.shape).astype(np.float32)).astype(np.float32)
+    moved_dev = torch.from_numpy(moved).to(dev)
+    plan = bvh8_refit_plan(bvh.bvh8.child)
+
+    def frame():
+        b8 = refit_bvh8(bvh.bvh8, moved_dev, plan)
+        return b8, packet2.build_packet_aux(b8)
+
+    frame_s = wall_s(frame, dev)
+    frame_parts = breakdown(frame, dev, frame_s * 1e3)
+    b8, aux = frame()
+    s_dev = torch.from_numpy(scale).to(dev)
+    rays_m = make_rays(rays.o * s_dev + torch.from_numpy(shift).to(dev),
+                       rays.d * s_dev)
+    R = rays_m.o.shape[0]
+    idx = oracle_subset(R, dev)
+
+    def trace():
+        return packet2.intersect_packets2(
+            b8, aux, rays_m, max_leaves=tun.max_leaves,
+            max_blocks=tun.max_blocks, wf_cap_factor=tun.wf_cap_factor)
+
+    h, ovf = trace()
+    if int(ovf.sum()):
+        raise AssertionError(f"refit: {int(ovf.sum())} tiles with residual "
+                             "overflow")
+    agree, ratio = oracle_check(h.take(idx), rays_m.take(idx), moved_dev,
+                                "refit packets")
+    trace_s = wall_s(trace, dev)
+    rate = R / trace_s / 1e6
+    trace_parts = breakdown(trace, dev, trace_s * 1e3)
+
+    fresh = BVH(tris, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    fresh.refit(moved)
+    sync(dev)
+    api_refit_s = time.perf_counter() - t0
+    h_api, mem = peak_gib(lambda: fresh.intersect(rays_m), dev)
+    a_agree, a_ratio = oracle_check(h_api.take(idx), rays_m.take(idx),
+                                    moved_dev, "refit api")
+    api_rate = R / wall_s(lambda: fresh.intersect(rays_m), dev) / 1e6
+    print(f"phase 13 refit: {tris.shape[0]} tris, refit_bvh8 + "
+          f"build_packet_aux {frame_s * 1e3:.3f} ms a frame (median of 3), "
+          f"{tris.shape[0] / frame_s / 1e6:.3f} Mtris/s ({frame_parts}); "
+          f"moved camera rays ({R}, tile order) through intersect_packets2 "
+          f"on the refit tables {rate:.3f} MRays/s ({trace_parts}), oracle "
+          f"prim-agree {agree:.5f} checksum {ratio:.6f}, residual overflow "
+          f"0; BVH.refit {api_refit_s:.3f} s "
+          f"({fresh.bvh8.leaf_tris.shape[0]} leaves without combining, "
+          f"against {bvh.bvh8.leaf_tris.shape[0]}), then BVH.intersect "
+          f"{api_rate:.3f} MRays/s (peak device memory {mem:.3f} GiB), "
+          f"oracle prim-agree {a_agree:.5f} checksum {a_ratio:.6f}; "
+          f"{time.perf_counter() - start:.1f} s [{gpu_line}]", flush=True)
+
+
 def main():
     import torch
 
@@ -1121,6 +1605,9 @@ def main():
     v1_kern, v1_launches = phase_v1(bvh, rays, scene[2], extent, gpu_line)
     kern.update(v1_kern)
     launches.update(v1_launches)
+    tlas_launches = phase_inst512(bvh, tris, gpu_line)
+    phase_inst8(bvh, tris, gpu_line)
+    phase_refit(bvh, tris, rays, gpu_line)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -1128,7 +1615,9 @@ def main():
          "replaces": REPLACES[name], "launches": launches[name],
          **{k: kern[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms")},
+         **({"tlas_launches": tlas_launches[name]}
+            if name in tlas_launches else {})}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

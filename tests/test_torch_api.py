@@ -115,8 +115,8 @@ def test_from_vertex_buffer_equals_direct(scene):
 
 @pytest.mark.parametrize("call", [
     "wavefront_watertight", "engine_rayloop", "small_batch_baldwin",
-    "engine_lockstep2", "occluded_watertight", "refit", "builder_lbvh",
-    "layout_bvh2", "tlas"])
+    "engine_lockstep2", "occluded_watertight", "builder_median",
+    "builder_lbvh", "layout_bvh2", "bins_not_8"])
 def test_unported_paths_raise(scene, call):
     """What the API still lacks raises NotImplementedError. Small, ragged
     and per-ray-t_max batches go to the wavefront engine, and the engine
@@ -142,14 +142,14 @@ def test_unported_paths_raise(scene, call):
         elif call == "occluded_watertight":
             with use_config(tri_test="watertight"):
                 pb.is_occluded(rays, torch.full((o.shape[0],), 5.0))
-        elif call == "refit":
-            pb.refit()
+        elif call == "builder_median":
+            tt.BVH(tris, builder="median", device="cpu")
         elif call == "builder_lbvh":
             tt.BVH(tris, builder="lbvh", device="cpu")
         elif call == "layout_bvh2":
             tt.BVH(tris, layout="bvh2", device="cpu")
         else:
-            tt.TLAS([pb], np.eye(4, dtype=np.float32)[None])
+            tt.BVH(tris, bins=4, device="cpu")
 
 
 def test_validate_rays_gate():

@@ -134,8 +134,7 @@ def _mt_args(bvh, monkeypatch, any_hit, pack, tri_blk=256):
     """Kernel B's arguments from one packet trace of the camera tiles."""
     o, d = _camera_rays()
     aux = (bvh.packet_aux if pack == 2 else
-           packet2.build_packet_aux_host(bvh._bvh8_host, pack=1,
-                                         device="cuda"))
+           packet2.build_packet_aux(bvh.bvh8, pack=1))
     calls = _capture(monkeypatch, "mt_fused")
     packet2.intersect_packets2(bvh.bvh8, aux, make_rays(o, d, device="cuda"),
                                max_leaves=512, retrace=False,
@@ -566,3 +565,153 @@ def test_v1_wrappers_reject_bad_inputs(scene):
         fw.collect_tile_leaves_kernel(b8.bounds, b8.child, planes,
                                       ndoto.reshape(T, 4), 64)
     assert (dict(lr.LAUNCHES), dict(fw.LAUNCHES)) == before
+
+
+# ---- instancing (tlas/) and refit on the card ----------------------------
+
+def _grid_camera(lo, hi, W=64):
+    """W x W rays from one eye outside the box (lo, hi), over its whole
+    front, in 16x16 tile order."""
+    center = (lo + hi) * 0.5
+    ext = float(np.max(hi - lo))
+    eye = center + np.array([0.6, 0.35, 1.1]) * ext * 1.2
+    fwd = (center - eye) / np.linalg.norm(center - eye)
+    right = np.cross(fwd, [0, 1, 0])
+    right /= np.linalg.norm(right)
+    up = np.cross(right, fwd)
+    xs = (np.arange(W) + 0.5) / W - 0.5
+    gx, gy = np.meshgrid(xs, xs)
+    d = fwd + 0.9 * gx[..., None] * right + 0.9 * gy[..., None] * up
+    d /= np.linalg.norm(d, axis=2, keepdims=True)
+    d = d.reshape(W // 16, 16, W // 16, 16, 3).transpose(0, 2, 1, 3, 4)
+    d = d.reshape(-1, 3).astype(np.float32)
+    return np.broadcast_to(eye.astype(np.float32), d.shape).copy(), d
+
+
+@pytest.fixture(scope="module")
+def inst64():
+    """4x4x4 = 64 instances of random_tris(2000) spaced at 1.15 x its
+    extent, built on the card, and 64x64 camera rays over the grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    from tinybvh_tpu_torch.tlas.packet import build_tlas_packet
+
+    tris = random_tris(2000, seed=1)
+    blas = BVH(tris, device="cuda")
+    lo = tris.reshape(-1, 3).min(0)
+    ex = tris.reshape(-1, 3).max(0) - lo
+    mats = []
+    for i in range(4):
+        for j in range(4):
+            for k in range(4):
+                m = np.eye(4, dtype=np.float32)
+                m[:3, 3] = ex * 1.15 * np.float32([i, j, k])
+                mats.append(m)
+    tp = build_tlas_packet([blas.bvh8], np.stack(mats))
+    o, d = _grid_camera(lo, lo + ex * (1.15 * 3 + 1))
+    n_segs = -(-blas.bvh8.leaf_tris.shape[0] // 4)
+    return tp, make_rays(o, d, device="cuda"), 4 * (-(-n_segs // 8) * 8)
+
+
+def _tie_equal(h, ref):
+    """prim and inst equal except exact ties (t within a relative 1e-6)."""
+    diff = (h.prim != ref.prim) | (h.inst != ref.inst)
+    tie = (h.t - ref.t).abs() <= 1e-6 * ref.t.abs()
+    assert not bool((diff & ~tie).any()), int((diff & ~tie).sum())
+
+
+def test_bucketed_tlas_on_cuda_matches_lockstep(inst64):
+    """The bucketed engine through kernels A and B on the card (rounds
+    covering every tile's candidates, the escalation covering the whole
+    BLAS): prim and inst equal to the lockstep two-level traversal on the
+    card, no residual overflow."""
+    from tinybvh_tpu_torch.tlas.instance import intersect_tlas8
+    from tinybvh_tpu_torch.tlas.packet import (
+        intersect_tlas_packets2_bucketed, tile_candidates,
+    )
+
+    tp, rays, full_ml = inst64
+    (_, _, n_cand), = tile_candidates(tp, rays, 1)
+    rounds = int(n_cand.max()) + 1
+    before = dict(packet2.LAUNCHES)
+    h, ovf = intersect_tlas_packets2_bucketed(
+        tp, rays, rounds=rounds, max_leaves=256, retrace="packet",
+        retrace_ml=full_ml, retrace_blocks=256, wf_cap_factor=64)
+    assert packet2.LAUNCHES["cull"] > before["cull"]
+    assert packet2.LAUNCHES["mt_fused"] > before["mt_fused"]
+    assert not bool(ovf.any())
+    ref = intersect_tlas8(tp.tlas, rays)
+    assert 0.1 < float((ref.prim >= 0).float().mean()) < 1.0
+    _tie_equal(h, ref)
+    m = ref.prim >= 0
+    np.testing.assert_allclose(h.t[m].cpu().numpy(), ref.t[m].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["dead_round", "escalation"])
+def test_tlas_round_kernels_match_plain(inst64, monkeypatch, case):
+    """Kernels A and B at the bucketed engine's shapes, bit for bit with
+    their twins: on a round in which whole tiles are dead (t_max 0 on all
+    their rays), and on an escalation pass whose budget is at least 1,024
+    segments (a 16-leaf first budget overflows)."""
+    from tinybvh_tpu_torch.tlas.packet import (
+        intersect_tlas_packets2_bucketed,
+    )
+
+    tp, rays, _ = inst64
+    a_calls = _capture(monkeypatch, "cull")
+    b_calls = _capture(monkeypatch, "mt_fused")
+    intersect_tlas_packets2_bucketed(tp, rays, rounds=8, max_leaves=16,
+                                     retrace="packet", retrace_ml=4096,
+                                     retrace_blocks=256, wf_cap_factor=64)
+    assert len(a_calls) == len(b_calls) > 1
+    if case == "dead_round":
+        # a first pass (k_cap 4) in which some tiles are dead
+        picks = [i for i, b in enumerate(b_calls)
+                 if b[7] == 4 and bool((b[5] == 0).all(dim=1).any())
+                 and bool((b[1] > 0).any())]
+    else:
+        picks = [i for i, b in enumerate(b_calls) if b[7] >= 1024]
+    assert picks, f"no {case} call"
+    a, b = a_calls[picks[0]], b_calls[picks[0]]
+    if case == "escalation":
+        assert a[6] >= 1024
+    _assert_equal_outputs(packet2._cull_cuda(*a), packet2._cull_plain(*a))
+    _assert_equal_outputs(packet2._mt_fused_cuda(*b),
+                          packet2._mt_fused_plain(*b)[:5])
+
+
+def test_refit_and_packet_tables_on_cuda_match_cpu(scene):
+    """refit_bvh8 and build_packet_aux on the card equal the same calls on
+    the CPU, bit for bit; BVH.refit then BVH.intersect on the card agrees
+    with the oracle over the moved triangles."""
+    from tinybvh_tpu_torch.builders.refit import bvh8_refit_plan, refit_bvh8
+    from tinybvh_tpu_torch.layouts.mbvh import BVH8
+
+    tris, bvh = scene
+    rng = np.random.default_rng(3)
+    moved = (tris * np.float32([1.3, 0.7, 1.0]) + np.float32([2, -1, 0.5])
+             + rng.normal(scale=0.02, size=tris.shape).astype(np.float32))
+    b8_cpu = BVH8(**{k: getattr(bvh.bvh8, k).cpu() for k in (
+        "bounds", "child", "leaf_tris", "leaf_prim")})
+    r_gpu = refit_bvh8(bvh.bvh8, moved, bvh8_refit_plan(bvh.bvh8.child))
+    r_cpu = refit_bvh8(b8_cpu, moved)
+    for k in ("bounds", "leaf_tris"):
+        assert torch.equal(getattr(r_gpu, k).cpu(), getattr(r_cpu, k))
+    a_gpu = packet2.build_packet_aux(r_gpu)
+    a_cpu = packet2.build_packet_aux(r_cpu)
+    for k in ("leaf_lo", "leaf_hi", "blk_lo", "blk_hi", "gtab_pad",
+              "center"):
+        g, c = getattr(a_gpu, k).cpu(), getattr(a_cpu, k)
+        assert g.shape == c.shape
+        assert g.view(torch.int32).equal(c.view(torch.int32)), k
+
+    fresh = BVH(tris, device="cuda")
+    fresh.refit(moved)
+    o, d = _camera_rays()
+    o = o * np.float32([1.3, 0.7, 1.0]) + np.float32([2, -1, 0.5])
+    d = d * np.float32([1.3, 0.7, 1.0])
+    rays = make_rays(o, d, device="cuda")
+    h = fresh.intersect(rays)
+    ref = brute_force_closest(rays, fresh.tris)
+    _tie_equal(h, ref)

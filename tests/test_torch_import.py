@@ -25,6 +25,11 @@ def test_import_loads_no_jax():
         "import tinybvh_tpu_torch.traverse.packet\n"
         "import tinybvh_tpu_torch.traverse.leaf_resolve\n"
         "import tinybvh_tpu_torch.traverse.frustum_walk\n"
+        "import tinybvh_tpu_torch.tlas.instance, tinybvh_tpu_torch.tlas.packet\n"
+        "import tinybvh_tpu_torch.builders.binned\n"
+        "import tinybvh_tpu_torch.builders.refit\n"
+        "import tinybvh_tpu_torch.layouts.bvh2\n"
+        "import tinybvh_tpu_torch.traverse.stack\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tinybvh_tpu'))\n"
         "print(bad)\n"

@@ -337,7 +337,7 @@ def test_tiny_scene_and_pack1_tables(scene):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     rays = make_rays(o, d, device="cpu")
     ref = brute_force_closest(rays, pb.tris)
-    aux1 = p2.build_packet_aux_host(pb._bvh8_host, pack=1)
+    aux1 = p2.build_packet_aux(pb.bvh8, pack=1)
     j1 = jbuild(pb._bvh8_host, pack=1)
     for k in ("leaf_lo", "blk_lo", "gtab_pad", "center"):
         assert _np(getattr(aux1, k)).tobytes() == _np(getattr(j1, k)).tobytes()

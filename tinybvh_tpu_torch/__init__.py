@@ -6,7 +6,11 @@ torch and never jax. Ported so far: `BVH(tris).intersect(rays)` /
 (traverse/packet2.py, four hand-written Hopper kernels in csrc/ and
 their plain PyTorch twins) with its exact wavefront retrace, the
 wavefront engine (traverse/wavefront.py) and the per-ray-stack lockstep
-engine (traverse/wide.py). See ROADMAP.md for what is still to port."""
+engine (traverse/wide.py); the v1 packet engine (traverse/packet.py);
+`BVH.refit` and the per-frame refit (builders/refit.py); and instancing,
+`TLAS(blases, transforms)` with the two-level engines (tlas/instance.py)
+and the per-instance and bucketed packet engines (tlas/packet.py). See
+ROADMAP.md for what is still to port."""
 
 from tinybvh_tpu_torch.api import BVH, TLAS
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays

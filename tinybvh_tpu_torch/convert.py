@@ -4,15 +4,20 @@ the exact same tables.
 `from_numpy_tables(bvh8_np, aux_np, device)` takes objects with the
 fields of the JAX `BVH8` and `PacketAux` (any array type numpy can read,
 e.g. jax arrays read back to the host) and returns the port's BVH8 and
-PacketAux on `device`; `from_numpy_bvh8` carries the BVH8 alone. It
-imports nothing of JAX."""
+PacketAux on `device`; `from_numpy_bvh8` carries the BVH8 alone,
+`from_numpy_bvh2` a BVH2, `from_numpy_tlas8` a TLAS8 and
+`from_numpy_tlas_packet` a TLASPacket with its BLASes and packet tables.
+It imports nothing of JAX."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from tinybvh_tpu_torch.layouts.bvh2 import BVH2
 from tinybvh_tpu_torch.layouts.mbvh import BVH8
+from tinybvh_tpu_torch.tlas.instance import TLAS8
+from tinybvh_tpu_torch.tlas.packet import TLASPacket
 from tinybvh_tpu_torch.traverse.packet2 import PacketAux
 
 
@@ -25,12 +30,39 @@ def from_numpy_bvh8(bvh8_np, device="cpu") -> BVH8:
                    for k in ("bounds", "child", "leaf_tris", "leaf_prim")})
 
 
-def from_numpy_tables(bvh8_np, aux_np, device="cpu"):
-    bvh8 = from_numpy_bvh8(bvh8_np, device)
-    aux = PacketAux(
+def from_numpy_bvh2(bvh2_np, device="cpu") -> BVH2:
+    return BVH2(**{k: _t(getattr(bvh2_np, k), device)
+                   for k in ("node_min", "node_max", "left_first", "count",
+                             "prim_idx")},
+                n_nodes=int(np.asarray(bvh2_np.n_nodes)))
+
+
+def from_numpy_aux(aux_np, device="cpu") -> PacketAux:
+    return PacketAux(
         **{k: _t(getattr(aux_np, k), device)
            for k in ("leaf_lo", "leaf_hi", "blk_lo", "blk_hi", "gtab_pad",
                      "center")},
         n_leaf_rows=int(aux_np.n_leaf_rows), pack=int(aux_np.pack),
         omap_s=int(aux_np.omap_s))
-    return bvh8, aux
+
+
+def from_numpy_tables(bvh8_np, aux_np, device="cpu"):
+    return from_numpy_bvh8(bvh8_np, device), from_numpy_aux(aux_np, device)
+
+
+def from_numpy_tlas8(tlas_np, device="cpu") -> TLAS8:
+    return TLAS8(**{k: _t(getattr(tlas_np, k), device)
+                    for k in ("bounds", "child", "leaf_tris", "leaf_prim",
+                              "inst_inv", "inst_mask", "inst_root")},
+                 n_leaf_rows=int(tlas_np.n_leaf_rows))
+
+
+def from_numpy_tlas_packet(tp_np, device="cpu") -> TLASPacket:
+    return TLASPacket(
+        tlas=from_numpy_tlas8(tp_np.tlas, device),
+        blases=tuple(from_numpy_bvh8(b, device) for b in tp_np.blases),
+        auxes=tuple(from_numpy_aux(a, device) for a in tp_np.auxes),
+        **{k: _t(getattr(tp_np, k), device)
+           for k in ("inst_inv", "inst_mask", "prim_tris", "prim_off",
+                     "inst_wlo", "inst_whi")},
+        blas_of=tuple(int(b) for b in tp_np.blas_of))

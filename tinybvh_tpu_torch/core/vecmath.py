@@ -10,6 +10,53 @@ import torch
 
 # Miss distance, mirrors BVH_FAR (tiny_bvh.h:653).
 BVH_FAR = 1e30
+# Default SAH constants, mirrors C_TRAV / C_INT (tiny_bvh.h:141-146).
+C_TRAV = 1.0
+C_INT = 1.0
+
+
+def half_area(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
+    """Half the surface area of AABBs, (..., 3) -> (...); empty boxes give
+    0 (≙ tinybvh_half_area, tiny_bvh.h:460)."""
+    e = torch.clamp(bmax - bmin, min=0.0)
+    return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
+
+
+def mat3_apply(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) applied to (..., 3): products summed left to right over
+    the last axis, in f32. Never `@`, einsum or matmul on ray transforms:
+    those may run as TF32 on the card (≙ JAX mat3_apply, where the TPU's
+    dot_general multiplied in bf16)."""
+    p = a * v[..., None, :]
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Row-major 4x4 transform(s) (..., 4, 4) applied to points (..., 3)
+    (≙ tinybvh_transform_point, tiny_bvh.h:565-573)."""
+    return mat3_apply(m[..., :3, :3], p) + m[..., :3, 3]
+
+
+def transform_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The rotation / scale part only (tiny_bvh.h:575-581)."""
+    return mat3_apply(m[..., :3, :3], v)
+
+
+def transform_aabb(m: torch.Tensor, bmin: torch.Tensor, bmax: torch.Tensor):
+    """World box enclosing transformed AABB(s): center' +- |A| extent
+    (≙ BLASInstance::Update's 8-corner transform, tiny_bvh.h:8386-8400)."""
+    c = (bmin + bmax) * 0.5
+    e = (bmax - bmin) * 0.5
+    a = m[..., :3, :3]
+    c2 = mat3_apply(a, c) + m[..., :3, 3]
+    e2 = mat3_apply(a.abs(), e)
+    return c2 - e2, c2 + e2
+
+
+def mat4_inverse(m: torch.Tensor) -> torch.Tensor:
+    """General batched 4x4 inverse (≙ BLASInstance::InvertTransform,
+    tiny_bvh.h:8402-8430)."""
+    return torch.linalg.inv(m)
 
 
 def safe_rcp(x: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,10 @@ Compiles the port's own copy of the JAX package's builder,
 `native/builder.c` beside this file (a test holds the two byte-identical),
 into the port's ignored `_build/` directory, with the same compiler
 flags as the JAX package's loader, so both packages build bit-identical
-trees from the same triangles. Raises RuntimeError where no C compiler
-is found: the numpy fallback builder is not ported yet.
+trees from the same triangles. Where no C compiler is found,
+`available()` is False and api.BVH builds with the numpy builder and
+the Python collapse instead, as the JAX package does; the functions
+here then raise RuntimeError.
 """
 
 from __future__ import annotations
@@ -28,10 +30,19 @@ _I = ctypes.POINTER(ctypes.c_int32)
 _i32 = ctypes.c_int32
 
 
+def _cc():
+    return shutil.which("cc") or shutil.which("gcc")
+
+
+def available() -> bool:
+    """True where a C compiler is found to build builder.c."""
+    return _cc() is not None
+
+
 def _load():
     global _lib
     if _lib is None:
-        cc = shutil.which("cc") or shutil.which("gcc")
+        cc = _cc()
         if cc is None:
             raise RuntimeError("no C compiler found to build builder.c")
         lib = ctypes.CDLL(compile_once([cc] + CC_FLAGS, [_SRC],

@@ -98,40 +98,52 @@ class PacketAux:
         return self.leaf_lo.shape[1] // LANES
 
 
-def build_packet_aux_host(bvh8_host: dict, pack: int = 2,
-                          device="cpu") -> PacketAux:
-    """Numpy build of the packet tables from the native collapse's host
-    dict, then one upload to `device`. Same numpy as the JAX package's
-    build_packet_aux_host, so the tables are bit-identical."""
-    lt = np.asarray(bvh8_host["leaf_tris"], np.float32)   # (L, 4, 3, 3)
-    lp = np.asarray(bvh8_host["leaf_prim"])
+def build_packet_aux(bvh8: BVH8, omap=None, pack: int = 2) -> PacketAux:
+    """The packet tables built from a BVH8 of tensors on its own device
+    (≙ JAX build_packet_aux). Each step is the JAX package's numpy build
+    (build_packet_aux_host), in its order, written as separate tensor ops
+    (sums left to right, no fused multiply-add), so the tables equal it
+    bit for bit. The prim ids are bit-cast into their f32 lanes by copies
+    only, which keep the NaN patterns of the -1 ids."""
+    if omap is not None:
+        raise NotImplementedError(
+            "opacity micromaps are not ported yet (ROADMAP queue 1, item "
+            "5c)")
+    if pack not in (1, 2):
+        raise ValueError(f"pack must be 1 or 2, got {pack}")
+    lt = bvh8.leaf_tris
+    lp = bvh8.leaf_prim
+    dev = lt.device
     valid = (lp >= 0)[..., None, None]
-    lo = np.where(valid, lt, BVH_FAR).min(axis=(1, 2))
-    hi = np.where(valid, lt, -BVH_FAR).max(axis=(1, 2))
-    center = ((lo.min(axis=0) + hi.max(axis=0)) * 0.5).astype(np.float32)
+    lo = torch.where(valid, lt, BVH_FAR).amin(dim=(1, 2))       # (L, 3)
+    hi = torch.where(valid, lt, -BVH_FAR).amax(dim=(1, 2))
+    center = (lo.amin(dim=0) + hi.amax(dim=0)) * 0.5
 
     L = lt.shape[0]
     lpad = -(-L // (LANES * SPAN)) * (LANES * SPAN)
-    lo_lp = np.concatenate(
-        [lo, np.full((lpad - L, 3), BVH_FAR, np.float32)], axis=0)
-    hi_lp = np.concatenate(
-        [hi, np.full((lpad - L, 3), -BVH_FAR, np.float32)], axis=0)
-    lo_p = lo_lp.reshape(-1, SPAN, 3).min(axis=1)       # (Spad, 3)
-    hi_p = hi_lp.reshape(-1, SPAN, 3).max(axis=1)
+
+    def full(n, val):
+        return torch.full((n, 3), val, dtype=torch.float32, device=dev)
+
+    lo_p = torch.cat([lo, full(lpad - L, BVH_FAR)]).reshape(
+        -1, SPAN, 3).amin(dim=1)                                # (Spad, 3)
+    hi_p = torch.cat([hi, full(lpad - L, -BVH_FAR)]).reshape(
+        -1, SPAN, 3).amax(dim=1)
 
     v0 = lt[:, :, 0] - center
     e1 = lt[:, :, 1] - lt[:, :, 0]
     e2 = lt[:, :, 2] - lt[:, :, 0]
-    n = np.cross(e1, e2)
-    k = np.sum(n * v0, axis=-1, keepdims=True)
+    n = cross(e1, e2)
+    nv = n * v0
+    k = (nv[..., 0] + nv[..., 1]) + nv[..., 2]
     tri_ok = (lp >= 0).reshape(4 * L, 1)
 
     lseg = -(-L // SPAN) * SPAN
     rows = (4 * lseg) // pack + 2 * M_MAX * (SEG_ROWS // pack)
-    gtab_pad = np.zeros((rows, 128), np.float32)
+    gtab_pad = torch.zeros((rows, 128), dtype=torch.float32, device=dev)
 
     def put(col, arr, width=3):
-        a = np.where(tri_ok, arr.reshape(4 * L, width), 0.0)
+        a = torch.where(tri_ok, arr.reshape(4 * L, width), 0.0)
         if pack == 2:
             gtab_pad[:2 * L, col:col + width] = a[0::2]
             gtab_pad[:2 * L, 48 + col:48 + col + width] = a[1::2]
@@ -139,36 +151,30 @@ def build_packet_aux_host(bvh8_host: dict, pack: int = 2,
             gtab_pad[:4 * L, col:col + width] = a
 
     put(0, n)                      # G_det = [n, 0...]
-    put(12, -np.cross(v0, e2))     # G_u = [-(v0 x e2), -e2, 0...]
+    put(12, -cross(v0, e2))        # G_u = [-(v0 x e2), -e2, 0...]
     put(15, -e2)
-    put(24, np.cross(v0, e1))      # G_v = [(v0 x e1), e1, 0...]
+    put(24, cross(v0, e1))         # G_v = [(v0 x e1), e1, 0...]
     put(27, e1)
     put(42, -n)                    # G_t = [0, 0, -n, n.v0, 0, 0]
     put(45, k, width=1)
 
     nb = lpad // (LANES * SPAN)
-    blo = lo_p.reshape(nb, LANES, 3).min(axis=1)
-    bhi = hi_p.reshape(nb, LANES, 3).max(axis=1)
     nbpad = -(-nb // LANES) * LANES
-    blo = np.concatenate(
-        [blo, np.full((nbpad - nb, 3), BVH_FAR, np.float32)], axis=0)
-    bhi = np.concatenate(
-        [bhi, np.full((nbpad - nb, 3), -BVH_FAR, np.float32)], axis=0)
-    # global prim id, bit-cast into an f32 lane
-    pidf = lp.reshape(4 * L, 1).astype(np.int32).view(np.float32)
+    blo = torch.cat([lo_p.reshape(nb, LANES, 3).amin(dim=1),
+                     full(nbpad - nb, BVH_FAR)])
+    bhi = torch.cat([hi_p.reshape(nb, LANES, 3).amax(dim=1),
+                     full(nbpad - nb, -BVH_FAR)])
+    pidf = lp.reshape(4 * L, 1).to(torch.int32).contiguous().view(
+        torch.float32)
     if pack == 2:
         gtab_pad[:2 * L, 96:97] = pidf[0::2]
         gtab_pad[:2 * L, 97:98] = pidf[1::2]
     else:
         gtab_pad[:4 * L, 48:49] = pidf
-
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return PacketAux(leaf_lo=up(lo_p.T), leaf_hi=up(hi_p.T),
-                     blk_lo=up(blo.T), blk_hi=up(bhi.T),
-                     gtab_pad=up(gtab_pad), center=up(center),
-                     n_leaf_rows=L, pack=pack)
+    return PacketAux(leaf_lo=lo_p.T.contiguous(), leaf_hi=hi_p.T.contiguous(),
+                     blk_lo=blo.T.contiguous(), blk_hi=bhi.T.contiguous(),
+                     gtab_pad=gtab_pad, center=center, n_leaf_rows=L,
+                     pack=pack)
 
 
 def _on_cuda(name, *tensors) -> bool:
