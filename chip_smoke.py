@@ -73,17 +73,34 @@ Phases (each prints one line; any failure raises and exits non-zero):
      through intersect_packets2 on the refit tables and, after BVH.refit,
      through BVH.intersect, each gated by the brute-force oracle (the
      frame and the trace with a profiler breakdown);
-then a JSON line of the eight kernels (launches counted on each kernel's
+ 14. the probes (tinybvh_tpu_torch/probes/): both drivers on the card, the
+     launch counts reset before them and read after (eager launches:
+     the wrappers do not count calls that a CUDA graph captures, whose
+     kernels then run twice in the graph's replays). Kernel H, each of
+     the TPU gather probes' forms at the probes' shapes: the kernel (CUDA
+     events over 200 launches), its device time (one CUDA graph of 200
+     launches), its twin, the one PyTorch call that computes it
+     (index_select, gather, take, or one bf16 matmul of D's ten; events
+     and a CUDA graph, as the kernel) and its bound. Kernel I, kernel
+     B's tile loop in eight variants at 16, 64 and 256 clustered keys a
+     tile and at 64 scattered ones (T = 1,600, k_cap 256, the random64k
+     packet tables): each variant's time, device time, twin and bound,
+     and the split of the loop by subtraction. Every kernel against its
+     twin:
+     torch.equal, bf16 within its tolerance (probes/mt_ablation.py check);
+then a JSON line of the kernels (launches counted on each kernel's
 own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
 11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
 drives on that trace's inputs, since no path of the package runs them;
 A and B also carry tlas_launches, their launches in one phase 12
-bucketed call), each with its time, its plain twin's, and its bound
-(BOUND_RATES), and as the last line {"ok": true, "device": {...}}.
+bucketed call; H and I theirs in phase 14's drivers, with device_ms,
+graph_runs and, for I, whose entry is the full variant at 64 clustered
+keys a tile, a `variants` dict), each with its time, its plain twin's, and its bound (BOUND_RATES),
+and as the last line {"ok": true, "device": {...}}.
 
 Precision: TF32 stays off (torch.backends.cuda.matmul.allow_tf32 and
-torch.backends.cudnn.allow_tf32 False); the kernels use no tensor cores.
-Imports nothing of JAX.
+torch.backends.cudnn.allow_tf32 False); the ray path uses no tensor
+cores (only the probes' bf16 products do). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -102,20 +119,38 @@ REPLACES = {"cull": "tinybvh_tpu/traverse/packet2.py:488",
             "leaf_resolve_v2": "tinybvh_tpu/traverse/pallas_leaf.py:92",
             "leaf_resolve_v3": "tinybvh_tpu/traverse/pallas_leaf.py:151",
             "leaf_resolve": "tinybvh_tpu/traverse/pallas_leaf.py:34",
-            "frustum_walk": "tinybvh_tpu/traverse/pallas_frustum.py:40"}
+            "frustum_walk": "tinybvh_tpu/traverse/pallas_frustum.py:40",
+            "gather_row": "benchmarks/pallas_gather_probe.py:20",
+            "gather_col": "benchmarks/pallas_gather_probe.py:51",
+            "gather_A": "benchmarks/pallas_gather_probe2.py:50",
+            "gather_B": "benchmarks/pallas_gather_probe2.py:65",
+            "gather_B2": "benchmarks/pallas_gather_probe2.py:78",
+            "gather_C": "benchmarks/pallas_gather_probe2.py:93",
+            "gather_E": "benchmarks/pallas_gather_probe2.py:107",
+            "gather_A100": "benchmarks/pallas_gather_probe2.py:120",
+            "gather_C100": "benchmarks/pallas_gather_probe2.py:134",
+            "gather_D2048": "benchmarks/pallas_gather_probe2.py:155",
+            "gather_D8192": "benchmarks/pallas_gather_probe2.py:155",
+            "mt_ablation": "benchmarks/mt_ablation_probe.py:115"}
 SOURCES = {"cull": "cull.cu", "mt_fused": "mt_fused.cu",
            "mt_gathered": "mt_gathered.cu", "cull_blocks": "cull_blocks.cu",
            "leaf_resolve_v2": "leaf_resolve.cu",
            "leaf_resolve_v3": "leaf_resolve.cu",
            "leaf_resolve": "leaf_resolve.cu",
-           "frustum_walk": "frustum_walk.cu"}
+           "frustum_walk": "frustum_walk.cu",
+           **dict.fromkeys([k for k in REPLACES if k.startswith("gather")],
+                           "gather_probe.cu"),
+           "mt_ablation": "mt_ablation.cu"}
 ORACLE_RAYS = 2048
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
 # memory rate and its fp32 operations over the fp32 rate outside the
 # tensor cores (NVIDIA's H100 SXM data sheet, at the full 700 W).
-BOUND_RATES = {"bytes_per_s": 3.35e12, "fp32_per_s": 67e12}
+# Kernels on the tensor cores (the probes' bf16 products) count those
+# operations at the dense bf16 rate.
+BOUND_RATES = {"bytes_per_s": 3.35e12, "fp32_per_s": 67e12,
+               "bf16_per_s": 989e12}
 # fp32 operations per unit of work, counted from each kernel's source:
 #   cull: per (segment, tile) test: 4 planes x 3 axes x (2 mul + 2 add)
 #     + 4 compares, the reach cap's 3 x (2 sub, max, clamp, mul, add) +
@@ -132,6 +167,16 @@ OPS_PER_UNIT = {"cull": 76, "cull_blocks": 52, "mt_fused": 112,
                 "mt_gathered": 110, "leaf_resolve_v2": 56,
                 "leaf_resolve_v3": 56, "leaf_resolve": 56,
                 "frustum_walk": 416}
+# Kernel I (csrc/mt_ablation.cu), per (row, ray) its result needs
+# (mt_ablation.tested_pairs: the live rows of the walked super-blocks;
+# every walked row for mathonly, which masks nothing): the dots 96 (48
+# multiplies, 48 adds), the epilogue 16 (sign select and 4 flips, the
+# hit test's 5 compares and 1 add, the live test, reciprocal, multiply,
+# select, the first-minimum compare); mathonly: the dots, 3 adds and a
+# min; bf16: the dots as 96 bf16 operations (K = 12, the padding not
+# counted), the epilogue in fp32; skeleton: one add per ray, no row.
+ABLATION_OPS = {"mathonly": {"fp32": 100}, "bf16": {"bf16": 96, "fp32": 16}}
+ABLATION_OPS_DEFAULT = {"fp32": 112}
 
 
 def camera_rays(lo, hi, W=640, H=640):
@@ -173,19 +218,12 @@ def sync(dev):
 
 def time_ms(fn, dev, n):
     """Mean ms per call over n calls after one warm-up: CUDA events on the
-    card, the host clock elsewhere."""
-    import torch
-
-    fn()
+    card (tinybvh_tpu_torch._timing.events_ms), the host clock elsewhere."""
     if dev.type == "cuda":
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(n):
-            fn()
-        t1.record()
-        torch.cuda.synchronize(dev)
-        return t0.elapsed_time(t1) / n
+        from tinybvh_tpu_torch._timing import events_ms
+
+        return events_ms(fn, n)
+    fn()
     s = time.perf_counter()
     for _ in range(n):
         fn()
@@ -194,26 +232,12 @@ def time_ms(fn, dev, n):
 
 def device_ms(fn, n):
     """Mean device time per call of fn(): n calls captured in one CUDA
-    graph, replayed between two CUDA events after a warm-up replay.
-    Unlike time_ms it leaves out the host's cost of a call, which events
-    around a run of calls include once a kernel is shorter than its
-    wrapper."""
-    import torch
+    graph (tinybvh_tpu_torch._timing.graph_ms). Unlike time_ms it leaves
+    out the host's cost of a call, which events around a run of calls
+    include once a kernel is shorter than its wrapper."""
+    from tinybvh_tpu_torch._timing import graph_ms
 
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
+    return graph_ms(fn, n)
 
 
 def wall_s(fn, dev, reps=3):
@@ -306,14 +330,21 @@ def nbytes(xs):
                if isinstance(x, torch.Tensor))
 
 
+def bound_of(n_bytes, ops):
+    """bound_ms and bound_by of n_bytes moved and ops {"fp32": n, "bf16":
+    n} of operations, each kind at its rate (BOUND_RATES)."""
+    t_bytes = n_bytes / BOUND_RATES["bytes_per_s"]
+    t_ops = sum(n / BOUND_RATES[f"{kind}_per_s"] for kind, n in ops.items())
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(name, args, outs, units):
     """bound_ms and bound_by of kernel `name` on these arguments: `units`
     of work (OPS_PER_UNIT), the tensor arguments read once and the
     outputs written once."""
-    t_bytes = (nbytes(args) + nbytes(outs)) / BOUND_RATES["bytes_per_s"]
-    t_ops = units * OPS_PER_UNIT[name] / BOUND_RATES["fp32_per_s"]
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+    return dict(**bound_of(nbytes(args) + nbytes(outs),
+                           {"fp32": units * OPS_PER_UNIT[name]}),
                 library_ms=None)
 
 
@@ -1554,6 +1585,152 @@ def phase_refit(bvh, tris, rays, gpu_line):
           f"{time.perf_counter() - start:.1f} s [{gpu_line}]", flush=True)
 
 
+PROBE_KPT = (16, 64, 256)    # keys a tile of kernel I: 1, 2, 8 super-blocks
+PROBE_KPT_SCATTERED = (64,)  # the same, keys spread over the table
+PROBE_T = 1600               # kernel I's tiles (the reference's T)
+
+
+def ms_text(ms, digits=4):
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
+
+
+def library_call(form, args):
+    """One PyTorch call that computes H form `form` on its arguments (a
+    zero-argument callable; its int64 indices made beforehand), or None
+    where there is none. Timed beside the kernel; the port never calls
+    it."""
+    import torch
+
+    if form == "row":
+        table, idx = args
+        return lambda: torch.index_select(table, 0, idx)
+    if form == "col":
+        a, col = args
+        col64 = col.long()[:, None]
+        return lambda: torch.gather(a, 1, col64)
+    if form in ("A", "B", "B2", "C"):
+        t, i = args
+        i64 = i.long()
+        dim = 0 if form == "C" else 1
+        return lambda: torch.gather(t, dim, i64)
+    if form == "E":
+        flat, i = args
+        i64 = i.long()
+        return lambda: torch.take(flat, i64)
+    if form.startswith("D"):
+        # one of the form's ten products
+        t, idx = args
+        onehot = (torch.arange(t.shape[0], device=t.device)[None]
+                  == idx[:, None]).to(torch.bfloat16)
+        return lambda: torch.matmul(onehot, t)
+    return None
+
+
+def phase_probes(bvh, gpu_line, n_plain=20):
+    """Phase 14: the probes' drivers (kernels H and I), each kernel against
+    its twin, launches counted over the drivers' runs; each H form and I
+    variant with its time, device time, twin's time, bound and (H) the
+    library call's time; kernel I's split of B's tile loop. Returns the
+    kernel entries and launches of the JSON line."""
+    from tinybvh_tpu_torch import _build
+    from tinybvh_tpu_torch.probes import gather, mt_ablation
+
+    dev = bvh.device
+    for table in (gather.LAUNCHES, mt_ablation.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    h = gather.run(dev)
+    i_res = {(kpt, keys): r
+             for keys, kpts in (("clustered", PROBE_KPT),
+                                ("scattered", PROBE_KPT_SCATTERED))
+             for kpt, r in mt_ablation.run(
+                 dev, keys_per_tile=kpts, T=PROBE_T, bvh=bvh,
+                 scattered=keys == "scattered").items()}
+    sync(dev)
+    counts = dict(gather.LAUNCHES, **mt_ablation.LAUNCHES)
+    if dev.type == "cuda" and min(counts.values()) == 0:
+        raise AssertionError(f"phase 14 skipped a kernel: {counts}")
+    print(f"phase 14 probes: launches {counts}", flush=True)
+
+    kern, launches = {}, {}
+    for form, r in h.items():
+        f = gather.FORMS[form]
+        lib = library_call(form, r["args"])
+        # D's result is exactly REPS * t[idx]: its bound is its bytes; the
+        # one-hot products the kernel runs are its method, printed apart
+        ops = ({"fp32": gather.ROUNDS * r["out"].numel()} if form == "C100"
+               else {})
+        name = f"gather_{form}"
+        kern[name] = dict(
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=time_ms(lambda: f.plain(*r["args"]), dev, n_plain),
+            library_ms=time_ms(lib, dev, 200) if lib else None,
+            library_device_ms=(device_ms(lib, 200)
+                               if lib and dev.type == "cuda" else None),
+            device_ms=r["device_ms"], graph_runs=r["graph_runs"],
+            **bound_of(nbytes(r["args"]) + nbytes((r["out"],)), ops))
+        launches[name] = r["launches"]
+        k = kern[name]
+        lib_txt = (f"{ms_text(k['library_ms'])} (device "
+                   f"{ms_text(k['library_device_ms'])})" if lib else "none")
+        if form.startswith("D"):
+            t, idx = r["args"]
+            mma = bound_of(0, {"bf16": 2 * gather.REPS * idx.numel()
+                               * t.numel()})["bound_ms"]
+            lib_txt += (f"; the one-hot method's bf16 operations alone "
+                        f"{mma:.6f} ms")
+        print(f"phase 14 kernel {name}: {f.work}: max_abs_err "
+              f"{k['max_abs_err']} kernel {ms_text(k['ms'])} device "
+              f"{ms_text(k['device_ms'])} plain {k['plain_ms']:.4f} ms "
+              f"library {lib_txt} bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}) [{gpu_line}]", flush=True)
+
+    if dev.type == "cuda":
+        occ = {v: _build.occupancy("tbvh_mt_ablation_occupancy", i)
+               for i, v in enumerate(mt_ablation.VARIANTS)}
+        print("phase 14 occupancy of kernel I: " + "; ".join(
+            f"{v}: {occupancy_text(o)}" for v, o in occ.items()), flush=True)
+    variants = {}
+    for (kpt, keys), r in i_res.items():
+        args, gtab = r["inputs"], r["gtab"]
+        T, k_cap = args[0].shape
+        label = str(kpt) if keys == "clustered" else f"{kpt} {keys}"
+        for v in mt_ablation.VARIANTS:
+            x = r[v]
+            pairs = mt_ablation.tested_pairs(args[1], x["n_sb"], k_cap, v)
+            ops = ({"fp32": T * 256} if v == "skeleton" else
+                   {kind: n * pairs for kind, n in
+                    ABLATION_OPS.get(v, ABLATION_OPS_DEFAULT).items()})
+            entry = dict(max_abs_err=x["max_abs_err"], ms=x["ms"],
+                         device_ms=x["device_ms"], plain_ms=x["plain_ms"],
+                         launches=x["launches"], graph_runs=x["graph_runs"],
+                         super_blocks=int(x["n_sb"].sum()), pairs=pairs,
+                         **bound_of(mt_ablation.bytes_moved(
+                             args, gtab, v, x["n_sb"], x["out"]), ops))
+            variants.setdefault(v, {})[label] = entry
+            per_tile = (f"{entry['device_ms'] / T * 1e3:.4f} us/tile"
+                         if entry["device_ms"] is not None else "")
+            print(f"phase 14 kernel mt_ablation {v} kpt {label} (T={T}, "
+                  f"{entry['super_blocks']} super-blocks, {pairs} (row, "
+                  f"ray) pairs its result needs): max_abs_err "
+                  f"{entry['max_abs_err']} kernel {ms_text(entry['ms'])} "
+                  f"device {ms_text(entry['device_ms'])} ({per_tile}) plain "
+                  f"{ms_text(entry['plain_ms'], 2)} bound "
+                  f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) "
+                  f"[{gpu_line}]", flush=True)
+        if dev.type == "cuda":
+            print(f"phase 14 split kpt {label} (device ms): " + ", ".join(
+                f"{what} {ms:.4f}" for what, ms in mt_ablation.split(r))
+                + f" [{gpu_line}]", flush=True)
+    full = variants["full"]["64"]
+    kern["mt_ablation"] = dict(
+        {k: full[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "device_ms", "graph_runs")},
+        library_ms=None, variants=variants)
+    launches["mt_ablation"] = mt_ablation.LAUNCHES["mt_ablation"]
+    return kern, launches
+
+
 def main():
     import torch
 
@@ -1608,14 +1785,20 @@ def main():
     tlas_launches = phase_inst512(bvh, tris, gpu_line)
     phase_inst8(bvh, tris, gpu_line)
     phase_refit(bvh, tris, rays, gpu_line)
+    probe_kern, probe_launches = phase_probes(bvh, gpu_line)
+    kern.update(probe_kern)
+    launches.update(probe_launches)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"tinybvh_tpu_torch/csrc/{SOURCES[name]}",
          "replaces": REPLACES[name], "launches": launches[name],
-         **{k: kern[name][k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")},
+         **{k: kern[name][k] for k in keys},
+         **{k: v for k, v in kern[name].items()
+            if k in ("device_ms", "library_device_ms", "graph_runs",
+                     "variants")},
          **({"tlas_launches": tlas_launches[name]}
             if name in tlas_launches else {})}
         for name in SOURCES]}), flush=True)

@@ -10,9 +10,11 @@ Every kernel is held to bit equality with its twin (torch.equal on
 every output): A (survivor keys in worklist order, counts), B (t, row
 index, u, v, prim), C (t, row index), G (block mask), and D, E and F of
 the v1 packet engine (t, row position or packed winner; leaf lists and
-counts). All the kernels round every multiply and add separately in the
-twins' order. Against the brute-force oracle: prim equal, t within
-rtol = atol = 1e-4.
+counts), and the probes' kernels H (each gather form) and I (each
+variant of B's tile loop; bf16 within a tolerance, since the order of
+its tensor-core additions is the hardware's). All the fp32 kernels round
+every multiply and add separately in the twins' order. Against the
+brute-force oracle: prim equal, t within rtol = atol = 1e-4.
 """
 
 import numpy as np
@@ -24,6 +26,8 @@ from tinybvh_tpu_torch import BVH  # noqa: E402
 from tinybvh_tpu_torch.core.intersect import brute_force_closest  # noqa: E402
 from tinybvh_tpu_torch.core.rays import make_rays  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
+from tinybvh_tpu_torch.probes import gather as hg  # noqa: E402
+from tinybvh_tpu_torch.probes import mt_ablation as ma  # noqa: E402
 from tinybvh_tpu_torch.traverse import frustum_walk as fw  # noqa: E402
 from tinybvh_tpu_torch.traverse import leaf_resolve as lr  # noqa: E402
 from tinybvh_tpu_torch.traverse import packet as pk  # noqa: E402
@@ -715,3 +719,115 @@ def test_refit_and_packet_tables_on_cuda_match_cpu(scene):
     h = fresh.intersect(rays)
     ref = brute_force_closest(rays, fresh.tris)
     _tie_equal(h, ref)
+
+
+# ---- the probes: kernels H (gather forms) and I (B's ablation) ----------
+
+@pytest.fixture(scope="module")
+def gather_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return hg.make_inputs(seed=1, device="cuda")
+
+
+@pytest.mark.parametrize("form", list(hg.FORMS))
+def test_gather_kernel_matches_plain(gather_inputs, form):
+    """Every H form equals its twin bit for bit (D too: each partial sum
+    of its one-hot products is exact)."""
+    f = hg.FORMS[form]
+    args = gather_inputs[form]
+    key = f.wrapper.__name__
+    before = hg.LAUNCHES[key]
+    got = f.wrapper(*args)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES[key] == before + 1
+    assert torch.equal(got, f.plain(*args))
+
+
+def test_probe_launches_captured_in_a_graph_are_not_counted(scene,
+                                                            gather_inputs):
+    """A call captured into a CUDA graph is recorded, not launched: the
+    wrappers don't count it, and the graph's replay computes the form."""
+    _, bvh = scene
+    t, i = gather_inputs["A"]
+    args, gtab = _ablation_inputs(bvh, 8)
+    hg.lane_gather(t, i)
+    ma.ablation(*args, gtab, "full")
+    torch.cuda.synchronize()
+    before = (dict(hg.LAUNCHES), dict(ma.LAUNCHES))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = hg.lane_gather(t, i)
+        ma.ablation(*args, gtab, "full")
+    assert (hg.LAUNCHES, ma.LAUNCHES) == before
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, hg.FORMS["A"].plain(t, i))
+
+
+def _ablation_inputs(bvh, T, seed=2):
+    """The driver's recipe at 64 keys a tile (2 super-blocks), k_cap 256,
+    with tile 0 empty, tile 1 at count = k_cap (8 super-blocks, its last
+    keys past the clamp), tile 2 stopped by a finite gate, tile 3's keys
+    all at the clamp, tile 4 over k_cap, and origins near the soup in
+    the odd tiles (more hits)."""
+    gtab = bvh.packet_aux.gtab_pad
+    mlr = gtab.shape[0] // 4 - 1
+    keys, counts, lbg, tmax, o_t, d_t = ma.make_inputs(
+        mlr + 1, T, 64, 256, seed=seed, device="cuda")
+    ar = torch.arange(256, dtype=torch.int32, device="cuda")
+    counts[0] = 0
+    counts[1] = 256
+    keys[1] = mlr - 200 + ar
+    lbg[1] = 0.0
+    tmax[2] = 5.0
+    lbg[2, 1] = 10.0
+    keys[3, :64] = mlr + ar[:64]
+    counts[4] = 1000
+    o_t[1::2] *= 0.2
+    return (keys, counts, lbg, tmax, o_t, d_t), gtab
+
+
+@pytest.mark.parametrize("T", [32, 1600])
+@pytest.mark.parametrize("variant", ma.VARIANTS)
+def test_ablation_kernel_matches_plain(scene, variant, T):
+    """Every I variant against its twin (ma.check): torch.equal, and for
+    bf16 (the mma's order of additions is the hardware's) the row equal
+    on >= 99.9% of rays and t within rtol = atol = 1e-4 where it is."""
+    _, bvh = scene
+    args, gtab = _ablation_inputs(bvh, T)
+    before = ma.LAUNCHES["mt_ablation"]
+    got = ma.ablation(*args, gtab, variant)
+    torch.cuda.synchronize()
+    assert ma.LAUNCHES["mt_ablation"] == before + 1
+    err, _, n_sb = ma.check(args, gtab, variant, got)
+    if variant != "bf16":
+        assert err == 0.0
+    if variant not in ("mathonly", "skeleton"):
+        assert n_sb[:3].tolist() == [0, 8, 1]
+        assert int((got[0] < 1e30).sum()) > 0
+
+
+def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
+    """A wrong dtype, shape or a mix of devices raises; nothing launches
+    and nothing falls back to the twin."""
+    _, bvh = scene
+    args, gtab = _ablation_inputs(bvh, 8)
+    before = (dict(hg.LAUNCHES), dict(ma.LAUNCHES))
+    with pytest.raises(ValueError):
+        ma.ablation(args[0].cpu(), *args[1:], gtab, "full")
+    with pytest.raises(TypeError):
+        ma.ablation(*args[:4], args[4].double(), args[5], gtab, "full")
+    t, i = gather_inputs["A"]
+    with pytest.raises(TypeError):
+        hg.lane_gather(t, i.long())
+    with pytest.raises(ValueError):
+        hg.lane_gather(torch.zeros((8, 256), device="cuda"), i)
+    with pytest.raises(ValueError):
+        hg.row_gather(t, i[0].cpu())
+    t, idx = gather_inputs["D2048"]
+    with pytest.raises(TypeError):
+        hg.onehot_gather(t.float(), idx)
+    with pytest.raises(ValueError):
+        hg.onehot_gather(t, idx[:100].contiguous())
+    assert (hg.LAUNCHES, ma.LAUNCHES) == before

@@ -30,6 +30,8 @@ def test_import_loads_no_jax():
         "import tinybvh_tpu_torch.builders.refit\n"
         "import tinybvh_tpu_torch.layouts.bvh2\n"
         "import tinybvh_tpu_torch.traverse.stack\n"
+        "import tinybvh_tpu_torch.probes.gather\n"
+        "import tinybvh_tpu_torch.probes.mt_ablation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tinybvh_tpu'))\n"
         "print(bad)\n"

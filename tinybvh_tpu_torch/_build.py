@@ -109,6 +109,19 @@ _SIGNATURES = {
     "tbvh_leaf_resolve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # frustum_walk.cu
     "tbvh_frustum_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # gather_probe.cu
+    "tbvh_gather_row": [_P, _P, _P, _I, _I, _P],
+    "tbvh_gather_col": [_P, _P, _P, _I, _I, _P],
+    "tbvh_gather_lane": [_P, _P, _P, _I, _I, _P],
+    "tbvh_gather_sublane": [_P, _P, _P, _I, _I, _P],
+    "tbvh_gather_flat": [_P, _P, _P, _I, _P],
+    "tbvh_gather_chain": [_P, _P, _P, _I, _P],
+    "tbvh_gather_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tbvh_gather_onehot": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # mt_ablation.cu
+    "tbvh_mt_ablation": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P],
+    "tbvh_mt_ablation_occupancy": [_I, _P],
 }
 
 

@@ -1,10 +1,13 @@
 // Shared constants and device functions of the packet kernels (see
 // traverse/packet2.py, traverse/leaf_resolve.py and
-// traverse/frustum_walk.py). Every multiply and add is rounded separately
-// (__fmul_rn / __fadd_rn, no FMA contraction) in the order of the JAX
-// kernels, so the kernels agree with the plain PyTorch twins bit for bit.
+// traverse/frustum_walk.py) and of the probes' kernels (probes/). Every
+// multiply and add is rounded separately (__fmul_rn / __fadd_rn, no FMA
+// contraction) in the order of the JAX kernels, so the kernels agree with
+// the plain PyTorch twins bit for bit; the one exception is the bf16
+// tensor-core product (mma_bf16_m16n8k16), which only the probes use.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tbvh {
@@ -131,6 +134,49 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   for (int w = 1; w < kTile / 32; ++w) r = nan_max(r, red[w]);
   __syncthreads();  // red is reused by the next call
   return r;
+}
+
+// One 16-byte copy from device to shared memory that bypasses the
+// registers (cp.async, L1 not allocated).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Waits for every cp.async of this thread (commits them first, by PTX).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Two bf16 values (raw bits) in one 32-bit register, `lo` in the low half:
+// the element with the lower index of an mma fragment pair.
+__device__ __forceinline__ unsigned pack_bf16x2(unsigned short lo,
+                                                unsigned short hi) {
+  return (unsigned)lo | ((unsigned)hi << 16);
+}
+
+// The bits of x rounded to bf16, to nearest even (as torch's .to(bfloat16)).
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// d += a * b on the tensor cores: one warp-wide m16n8k16 product of bf16
+// inputs with f32 accumulation (mma.sync, row-major A, column-major B).
+// With g = lane / 4 and c = lane % 4, a lane holds
+//   a[0] = A[g][2c, 2c+1], a[1] = A[g+8][2c, 2c+1],
+//   a[2] = A[g][2c+8, 2c+9], a[3] = A[g+8][2c+8, 2c+9];
+//   b[0] = B[2c, 2c+1][g], b[1] = B[2c+8, 2c+9][g];
+//   d = {D[g][2c], D[g][2c+1], D[g+8][2c], D[g+8][2c+1]}.
+// The products are exact; the order of the additions is the hardware's.
+__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4],
+                                                  const unsigned (&a)[4],
+                                                  const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Resources of a kernel at its launch shape (threads per CTA, dynamic

@@ -71,17 +71,6 @@ struct RowLayout {
   static constexpr int kPidB = 97;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Waits for every cp.async of this thread (commits them first, by PTX).
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Signed MT terms of one triangle (48 lanes at g, read as 12 float4)
 // against RPT rays, in lane order (≙ common.cuh signed_terms).
 template <int RPT>
