@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main path once on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --v1     # phases 1-2 and 11 only, no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -26,7 +27,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      retrace) gated by the oracles, with its peak device memory;
   6. kernels C and G against their twins: C at the fused=False path's
      shapes (T=1600 tiles, max_leaves=512, K4=2048 rows), G at the API's
-     cull descriptors (G=200 groups);
+     cull descriptors (G=200 groups); each with its device time;
   7. the cull-stage probes' path (benchmarks/cull_stage_probe.py): the
      coarse tier through kernel G, the worklists, kernel A; equal to the
      production cull's worklists, survivor counts and keys;
@@ -45,7 +46,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      modes (default frontier, phase1_flat, kernel D, kernels F + D), each
      with zero overflowed tiles and the oracle gates, prims equal across
      modes; kernels D (v2 and v3 bodies), E and F against their twins bit
-     for bit (F also at 64 leaves, where tiles overflow); the shadow
+     for bit (F also at 64 leaves, where tiles overflow), each with its
+     device time (a CUDA graph), D with its live rows and a line of its
+     registers, shared memory and resident CTAs per SM; the shadow
      segments of phase 4's light through is_occluded_packets (kernel D,
      2048 leaves, pair cap 512: see V1_SHADOW)
      and the rays, shuffled inside each tile, through
@@ -80,8 +83,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the TPU gather probes' forms at the probes' shapes: the kernel (CUDA
      events over 200 launches), its device time (one CUDA graph of 200
      launches), its twin, the one PyTorch call that computes it
-     (index_select, gather, take, or one bf16 matmul of D's ten; events
-     and a CUDA graph, as the kernel) and its bound. Kernel I, kernel
+     (index_select, gather, take, or for D torch.mm of 10 x the one-hot
+     matrix in f32 with t in f32, equal to the kernel; events and a CUDA
+     graph, as the kernel) and its bound; H-D's occupancy. Kernel I, kernel
      B's tile loop in eight variants at 16, 64 and 256 clustered keys a
      tile and at 64 scattered ones (T = 1,600, k_cap 256, the random64k
      packet tables): each variant's time, device time, twin and bound,
@@ -380,8 +384,10 @@ def fused_tests(b, n_sb):
 
 
 def kernel_line(phase, name, r, gpu_line):
+    dev_txt = (f" device {ms_text(r['device_ms'])}" if "device_ms" in r
+               else "")
     print(f"phase {phase} kernel {name}: {r['shape']} max_abs_err "
-          f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+          f"{r['max_abs_err']} kernel {r['ms']:.4f} ms{dev_txt} plain "
           f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}) [{gpu_line}]", flush=True)
 
@@ -688,6 +694,7 @@ def phase_kernels_cg(bvh, rays, cull_args, gpu_line, n_kernel=20,
     out["mt_gathered"] = dict(
         max_abs_err=float((t_k - t_p).abs().max()),
         ms=time_ms(lambda: kern(*c), dev, n_kernel),
+        device_ms=device_ms(lambda: kern(*c), n_kernel) if on_gpu else None,
         plain_ms=time_ms(lambda: plain_c(*c), dev, n_plain),
         shape=f"T={c[2].shape[0]} K4={c[2].shape[1]}",
         # live rows of the 128-row blocks each tile ran before its gate
@@ -704,6 +711,7 @@ def phase_kernels_cg(bvh, rays, cull_args, gpu_line, n_kernel=20,
     out["cull_blocks"] = dict(
         max_abs_err=int((m_k - m_p).abs().max()),
         ms=time_ms(lambda: kern(*g), dev, n_kernel),
+        device_ms=device_ms(lambda: kern(*g), n_kernel) if on_gpu else None,
         plain_ms=time_ms(lambda: packet2._cull_blocks_plain(*g), dev,
                          n_plain),
         shape=f"G={m_k.shape[0]} nbpad={m_k.shape[2]} "
@@ -962,12 +970,15 @@ def equal_twin(what, got, ref):
 
 def kernel_entry(name, kern, plain, args, units, dev, shape, n_kernel=20,
                  n_plain=3):
-    """Kernel against its twin on `args` (bit equality), both timed, and
-    the kernel's bound on these arguments."""
+    """Kernel against its twin on `args` (bit equality), both timed (the
+    kernel also by device_ms on the card), and the kernel's bound on
+    these arguments."""
     got = kern(*args)
     ref = plain(*args)
     return dict(max_abs_err=equal_twin(name, got, ref),
                 ms=time_ms(lambda: kern(*args), dev, n_kernel),
+                device_ms=(device_ms(lambda: kern(*args), n_kernel)
+                           if dev.type == "cuda" else None),
                 plain_ms=time_ms(lambda: plain(*args), dev, n_plain),
                 shape=shape, **bound(name, args, got, units))
 
@@ -1024,8 +1035,10 @@ def phase_v1(bvh, rays, center, extent, gpu_line):
     # kernel D (both bodies) on the D trace's rows, E on its leaf lists
     d_args = rec["leaf_resolve_v2"][0]
     k_d = (lr._resolve_v2_cuda if on_gpu else lr._resolve_v2_plain)
-    d_units = live_rows(d_args[2]) * 256
-    d_shape = f"T={T} K4={d_args[2].shape[1]}"
+    n_live = live_rows(d_args[2])
+    d_units = n_live * 256
+    d_shape = (f"T={T} K4={d_args[2].shape[1]} ({n_live} live rows of "
+               f"{T * d_args[2].shape[1]})")
     out = {}
     for name, wide in (("leaf_resolve_v2", False), ("leaf_resolve_v3", True)):
         out[name] = kernel_entry(
@@ -1600,6 +1613,7 @@ def library_call(form, args):
     where there is none. Timed beside the kernel; the port never calls
     it."""
     import torch
+    from tinybvh_tpu_torch.probes import gather
 
     if form == "row":
         table, idx = args
@@ -1618,11 +1632,13 @@ def library_call(form, args):
         i64 = i.long()
         return lambda: torch.take(flat, i64)
     if form.startswith("D"):
-        # one of the form's ten products
+        # the whole function, 10 * t[idx], as one f32 product (TF32 off):
+        # each output is one nonzero product 10 * v, exact
         t, idx = args
-        onehot = (torch.arange(t.shape[0], device=t.device)[None]
-                  == idx[:, None]).to(torch.bfloat16)
-        return lambda: torch.matmul(onehot, t)
+        oh10 = (torch.arange(t.shape[0], device=t.device)[None]
+                == idx[:, None]).to(torch.float32) * gather.REPS
+        t32 = t.float()
+        return lambda: torch.mm(oh10, t32)
     return None
 
 
@@ -1632,6 +1648,7 @@ def phase_probes(bvh, gpu_line, n_plain=20):
     variant with its time, device time, twin's time, bound and (H) the
     library call's time; kernel I's split of B's tile loop. Returns the
     kernel entries and launches of the JSON line."""
+    import torch
     from tinybvh_tpu_torch import _build
     from tinybvh_tpu_torch.probes import gather, mt_ablation
 
@@ -1661,6 +1678,8 @@ def phase_probes(bvh, gpu_line, n_plain=20):
         ops = ({"fp32": gather.ROUNDS * r["out"].numel()} if form == "C100"
                else {})
         name = f"gather_{form}"
+        if lib and form.startswith("D") and not torch.equal(lib(), r["out"]):
+            raise AssertionError(f"{name}: torch.mm differs from the kernel")
         kern[name] = dict(
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=time_ms(lambda: f.plain(*r["args"]), dev, n_plain),
@@ -1686,6 +1705,9 @@ def phase_probes(bvh, gpu_line, n_plain=20):
               f"({k['bound_by']}) [{gpu_line}]", flush=True)
 
     if dev.type == "cuda":
+        print("phase 14 occupancy of kernel H-D: " + occupancy_text(
+            _build.occupancy("tbvh_gather_onehot_occupancy"))
+            + f" [{gpu_line}]", flush=True)
         occ = {v: _build.occupancy("tbvh_mt_ablation_occupancy", i)
                for i, v in enumerate(mt_ablation.VARIANTS)}
         print("phase 14 occupancy of kernel I: " + "; ".join(
@@ -1731,8 +1753,23 @@ def phase_probes(bvh, gpu_line, n_plain=20):
     return kern, launches
 
 
-def main():
+def phase_v1_occupancy(gpu_line):
+    """Registers, shared memory and resident CTAs per SM of kernel D's two
+    bodies as the package launches them."""
+    from tinybvh_tpu_torch import _build
+
+    print("phase 11 occupancy of kernel D: " + "; ".join(
+        f"{name}: "
+        + occupancy_text(_build.occupancy("tbvh_leaf_resolve_v2_occupancy",
+                                          wide))
+        for name, wide in (("v2", 0), ("v3", 1))) + f" [{gpu_line}]",
+        flush=True)
+
+
+def main(argv=()):
     import torch
+
+    v1_only = "--v1" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1768,6 +1805,10 @@ def main():
     tris = random_tris(65536, seed=0)
     scene = setup_scene(tris, dev, 640)
     bvh, rays, _, extent, _ = scene
+    if v1_only:
+        # phase 11 alone (it reads nothing of the other phases)
+        phase_v1(bvh, rays, scene[2], extent, gpu_line)
+        return 0
     kern, cull_args, mt_args = phase_kernels(bvh, rays, gpu_line)
     phase_occupancy(cull_args, mt_args, gpu_line)
     launches, shadow = phase_api(*scene, gpu_line)
@@ -1780,6 +1821,7 @@ def main():
     phase_retrace(bvh, rays, shadow, gpu_line)
     phase_off_packets(bvh, rays, extent, gpu_line)
     v1_kern, v1_launches = phase_v1(bvh, rays, scene[2], extent, gpu_line)
+    phase_v1_occupancy(gpu_line)
     kern.update(v1_kern)
     launches.update(v1_launches)
     tlas_launches = phase_inst512(bvh, tris, gpu_line)
@@ -1809,4 +1851,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

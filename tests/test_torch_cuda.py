@@ -478,6 +478,105 @@ def test_leaf_resolve_v2_kernel_matches_plain(scene, wide, max_leaves):
     assert bool((tr < 1e30).any())
 
 
+# Kernel D's edge cases (also held against JAX on the CPU by
+# tests/test_torch_leaf_edges.py): T = 2 tiles of 256 rays from z = -4
+# towards +z, K4 = 512 rows (v3 block 256); rows [v0 | e1 | e2 | 0].
+LEAF_EDGE_CASES = ("all_dead", "last_chunk", "zero_tris", "ties")
+# the winning row of every ray in the ties case, per tile: v2 the first
+# copy, v3 the least (sublane idx % 256, block idx // 256)
+LEAF_TIE_ROWS = {False: (10, 3), True: (265, 258)}
+
+
+def leaf_edge_inputs(case, seed=0):
+    """(o_t, d_t (2, 3, 256), geom (2, 512, 12)) numpy f32 of one case:
+    all_dead: tile 0 all zero rows, tile 1 live rows 0-99 then zeros;
+    last_chunk: live rows only in the last 128-row chunk (tile 0: the
+    last 40 rows; tile 1: rows 384-415);
+    zero_tris: rows 0-299 live but for the zero rows r % 4 == 3 or r % 7
+    == 0 (short leaves), zeros after;
+    ties: one large triangle at z = 0.5 in front of every ray, copied to
+    rows 10, 265 and 300 (tile 0) and 3 and 258 (tile 1), random
+    triangles behind it in rows 0-199: exact ties in t across rows and
+    across v3 sublanes."""
+    rng = np.random.default_rng(seed)
+    T, K4 = 2, 512
+    o = np.zeros((T, 3, 256), np.float32)
+    o[:, :2] = rng.uniform(-0.05, 0.05, (T, 2, 256))
+    o[:, 2] = -4.0
+    d = np.ones((T, 3, 256))
+    d[:, :2] = rng.uniform(-0.1, 0.1, (T, 2, 256))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+    def tris(n, z=(0.0, 3.0)):
+        c = np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.4, 0.4, n),
+                      rng.uniform(*z, n)], -1)
+        v = c[:, None] + rng.uniform(-0.6, 0.6, (n, 3, 3)) * [1, 1, 0.2]
+        return np.concatenate([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0],
+                               np.zeros((n, 3))], -1)
+
+    g = np.zeros((T, K4, 12))
+    if case == "all_dead":
+        g[1, :100] = tris(100)
+    elif case == "last_chunk":
+        g[0, K4 - 40:] = tris(40)
+        g[1, 384:416] = tris(32)
+    elif case == "zero_tris":
+        r = np.arange(300)
+        for t in range(T):
+            g[t, :300] = tris(300)
+            g[t, r[(r % 4 == 3) | (r % 7 == 0)]] = 0.0
+    elif case == "ties":
+        big = np.array([-3, -3, 0.5, 8, 0, 0, 0, 8, 0, 0, 0, 0])
+        for t, rows in enumerate(((10, 265, 300), (3, 258))):
+            g[t, :200] = tris(200, z=(1.0, 3.0))
+            g[t, list(rows)] = big
+    else:
+        raise ValueError(case)
+    return o, d, g.astype(np.float32)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("case", LEAF_EDGE_CASES)
+def test_leaf_resolve_v2_kernel_edge_cases(case, wide):
+    """Kernel D (it skips the rows whose e2 is zero) against its twin
+    (which tests every row) on the edge cases, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    o_t, d_t, geom = (torch.from_numpy(x).cuda()
+                      for x in leaf_edge_inputs(case))
+    t, i = lr._resolve_v2_cuda(o_t, d_t, geom, wide)
+    tr, ir = lr._resolve_v2_plain(o_t, d_t, geom, wide)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir) and torch.equal(t, tr)
+    if case == "ties":
+        want = torch.tensor(LEAF_TIE_ROWS[wide], dtype=torch.int32,
+                            device="cuda")[:, None]
+        assert bool((i == want).all())
+    if case == "all_dead":
+        assert bool((t[0] == 1e30).all()) and not bool(i[0].any())
+
+
+def test_leaf_resolve_v2_kernel_at_the_shadow_budget(scene):
+    """Kernel D at K4 = 8,192 rows (2,048 leaves a tile, the v1 engine's
+    shadow budget V1_SHADOW), both bodies (v3 block 256)."""
+    _, bvh = scene
+    leaves, o_t, d_t, _, _ = _v1_inputs(bvh, 2048)
+    T, K = leaves.shape
+    rows = torch.clamp(leaves, 0, bvh.bvh8.leaf_tris.shape[0] - 1)
+    idx = (rows[:, :, None] * 4
+           + torch.arange(4, device="cuda")).long()
+    geom = torch.where((leaves != 2**31 - 1)[:, :, None, None],
+                       lr.pack_tri_geom(bvh.bvh8)[idx],
+                       0.0).reshape(T, 4 * K, 12)
+    assert geom.shape[1] == 8192
+    for wide in (False, True):
+        t, i = lr._resolve_v2_cuda(o_t, d_t, geom, wide)
+        tr, ir = lr._resolve_v2_plain(o_t, d_t, geom, wide)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ir) and torch.equal(t, tr)
+    assert bool((tr < 1e30).any())
+
+
 @pytest.mark.parametrize("max_leaves", [512, 40])
 def test_leaf_resolve_kernel_matches_plain(scene, max_leaves):
     """Kernel E on pack_leaf_geom rows gathered by the tile lists, with
@@ -744,6 +843,28 @@ def test_gather_kernel_matches_plain(gather_inputs, form):
     assert torch.equal(got, f.plain(*args))
 
 
+@pytest.mark.parametrize("N", [2048, 8192, 2064])
+def test_onehot_kernel_slab_edges(N):
+    """H-D (64-row slabs of t, one CTA per slab and 64 output rows) against
+    its twin, with indices at 0, N - 1 and each side of slab edges, and at
+    N = 2,064, which 64-row slabs do not divide (a last slab of 16 rows);
+    the whole-function torch.mm that phase 14 times equals it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    rng = np.random.default_rng(N)
+    t = torch.from_numpy(rng.random((N, 96), dtype=np.float32)).to(
+        torch.bfloat16).cuda()
+    idx = rng.integers(0, N, 256).astype(np.int32)
+    edges = [0, N - 1, 63, 64, 127, 128, N - 16, N - 17, N - 64, N - 65]
+    idx[:len(edges)] = edges
+    idx = torch.from_numpy(idx).cuda()
+    got = hg.onehot_gather(t, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hg._onehot_plain(t, idx))
+    oh10 = (torch.arange(N, device="cuda")[None] == idx[:, None]).float() * 10
+    assert torch.equal(torch.mm(oh10, t.float()), got)
+
+
 def test_probe_launches_captured_in_a_graph_are_not_counted(scene,
                                                             gather_inputs):
     """A call captured into a CUDA graph is recorded, not launched: the
@@ -830,4 +951,10 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
         hg.onehot_gather(t.float(), idx)
     with pytest.raises(ValueError):
         hg.onehot_gather(t, idx[:100].contiguous())
+    with pytest.raises(ValueError):   # 64-row output blocks
+        hg.onehot_gather(t, idx[:80].contiguous())
+    with pytest.raises(ValueError):   # 96 columns only
+        hg.onehot_gather(t[:, :64].contiguous(), idx)
+    with pytest.raises(ValueError):   # N a multiple of 16
+        hg.onehot_gather(t[:2040].contiguous(), idx)
     assert (hg.LAUNCHES, ma.LAUNCHES) == before

@@ -106,6 +106,7 @@ _SIGNATURES = {
     "tbvh_cull_blocks": [_P, _P, _P, _P, _I, _I, _I, _P],
     # leaf_resolve.cu
     "tbvh_leaf_resolve_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tbvh_leaf_resolve_v2_occupancy": [_I, _P],
     "tbvh_leaf_resolve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # frustum_walk.cu
     "tbvh_frustum_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -118,6 +119,7 @@ _SIGNATURES = {
     "tbvh_gather_chain": [_P, _P, _P, _I, _P],
     "tbvh_gather_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbvh_gather_onehot": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tbvh_gather_onehot_occupancy": [_P],
     # mt_ablation.cu
     "tbvh_mt_ablation": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],

@@ -149,6 +149,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Closes this thread's pending cp.async copies into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Two bf16 values (raw bits) in one 32-bit register, `lo` in the low half:
 // the element with the lower index of an mma fragment pair.
 __device__ __forceinline__ unsigned pack_bf16x2(unsigned short lo,
@@ -178,6 +189,51 @@ __device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+namespace {
+
+constexpr int kOrderThreads = 1024;  // tile_order's CTA, and its bins
+
+// The tiles in descending order of counts[t] / kpb (clamped to [0,
+// k_cap]; bins past kOrderThreads - 2 share the last one): a counting
+// sort in one CTA, for kernels whose tiles differ in length, so that the
+// longest start first and no long tile is left for the last wave. The
+// order within a bin is free, since a tile's result does not depend on
+// the CTA that runs it.
+__global__ void __launch_bounds__(kOrderThreads)
+tile_order(const int* __restrict__ counts, int T, int k_cap, int kpb,
+           int* __restrict__ order) {
+  __shared__ int next[kOrderThreads];  // per bin: its count, then its slot
+  __shared__ int wsum[kOrderThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  auto bin = [&](int t) {
+    const int c = max(min(counts[t], k_cap), 0);
+    return min((c + kpb - 1) / kpb, kOrderThreads - 1);
+  };
+  next[tid] = 0;
+  __syncthreads();
+  for (int t = tid; t < T; t += kOrderThreads) atomicAdd(&next[bin(t)], 1);
+  __syncthreads();
+  // thread i holds bin kOrderThreads - 1 - i: an exclusive prefix over the
+  // bins in descending order gives each bin's first slot
+  const int h = next[kOrderThreads - 1 - tid];
+  int inc = h;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += n;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  int first = inc - h;
+  for (int w = 0; w < warp; ++w) first += wsum[w];
+  next[kOrderThreads - 1 - tid] = first;
+  __syncthreads();
+  for (int t = tid; t < T; t += kOrderThreads)
+    order[atomicAdd(&next[bin(t)], 1)] = t;
+}
+
+}  // namespace
 
 // Resources of a kernel at its launch shape (threads per CTA, dynamic
 // shared bytes), for the occupancy line of chip_smoke.py: out = {threads,

@@ -18,18 +18,44 @@
 //          between rounds (each round reads the whole previous one);
 //   sum    acc = sum over s of t[(i + s) % N, l] (C100), added in order of
 //          s from zero with __fadd_rn, so it equals the twin bit for bit;
-//   onehot (D) ten products onehot(idx) @ t on the tensor cores
-//          (mma.sync m16n8k16, bf16 in, f32 accumulation): the one-hot
-//          tile is built in registers, t read from device memory. Every
-//          partial sum holds one nonzero product (a bf16 value times at
-//          most 10), so the result is 10 * t[idx] exactly.
+//   onehot (D) ten products onehot(idx) @ t on the tensor cores (wgmma,
+//          bf16 in, f32 accumulation), see below.
 //
 // What bounds them on this card: every table is at most 1.6 MB, so the
 // bytes take well under a microsecond and each launch is bound by its
-// fixed cost (launch, one wave, the chain's 100 barriers). The one-hot
-// product is the exception: it does 2 * 256 * N * 96 * 10 operations to
-// move 256 * 96 values, bound by the tensor-core rate; it is the TPU's
-// workaround, kept to be timed, not a way to gather on this card.
+// fixed cost (launch, one wave, the chain's 100 barriers).
+//
+// The one-hot form (D) is the TPU's workaround for a gather, kept to time
+// the method: o (M, F) f32 = sum over 10 reps of onehot(idx) (M, N) @ t
+// (N, F) bf16, F = 96. Its result is exactly 10 * t[idx], but the method
+// is 2 * 10 * M * N * F bf16 operations (4 G at N = 8,192), so what bounds
+// it is the tensor cores' bf16 rate. The design keeps every product on
+// the tensor cores over the full N (no one-hot fragment is skipped, the
+// ten are not folded into a scale) and spreads them over the card:
+//  - the grid splits N into slabs of 64 rows of t and M into blocks of
+//    64 rows: N / 64 x M / 64 CTAs of one warpgroup (128 at N = 2,048, 512
+//    at 8,192), so every SM has work;
+//  - a CTA stages its slab (12 KB) once into shared memory by 16-byte
+//    cp.async, already in the layout wgmma reads without swizzle: 8 x 8
+//    core matrices of 128 contiguous bytes (8 rows of t, 8 columns each),
+//    K-adjacent ones 128 B apart, N-adjacent ones 64 x 16 B apart. A TMA
+//    tensor map would write the same 12 KB from one thread, but the copy
+//    is a small part of the CTA's time and cp.async needs no tensor map
+//    encoded on the host;
+//  - the one-hot A fragments are compared into registers from idx once
+//    (the same for all ten reps), and each rep issues one wgmma
+//    m64n96k16 per 16 rows of the slab with B read from shared memory in
+//    its transposed (N-major) form: t is (N, F) row-major. All 10 x 4
+//    products of a CTA run back to back on one accumulator, one commit,
+//    one wait;
+//  - the CTAs' partial sums are combined exactly without atomics: for a
+//    row whose index lies in another slab every one-hot entry of this
+//    slab is zero, so this slab's partial is exactly +0 (t is finite) and
+//    adds nothing; each CTA stores the rows whose index lies in its slab,
+//    and every output row has exactly one such CTA. Within it each
+//    product has one nonzero term (1 x a bf16 value), and k * v for k <=
+//    10 needs at most 12 significand bits, so every partial sum is exact
+//    in any order and the result equals the plain twin bit for bit.
 #include "common.cuh"
 
 #include <cstdint>
@@ -121,43 +147,113 @@ __global__ void sum_gather(const float* __restrict__ t,
   o[e] = acc;
 }
 
+constexpr int kOhF = 96;     // columns of t and of the output (wgmma N)
+constexpr int kOhSlab = 64;  // rows of t a CTA stages: 4 k-steps of 16
+constexpr int kOhKs = kOhSlab / 16;
+constexpr int kOhM = 64;     // output rows a CTA: one warpgroup's wgmma M
+
+// wgmma operand descriptor of shared memory at p without swizzle: lbo the
+// bytes between core matrices adjacent in K, sbo in M or N.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
+                                              unsigned sbo) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (64 x 96 f32, the warpgroup's accumulator) += A (64 x 16 bf16, this
+// thread's fragment a, laid out per warp as mma.sync m16n8k16's) @ B (16 x
+// 96 bf16 at desc, N-major: imm-trans-b = 1). Thread (warp w, g = lane /
+// 4, c = lane % 4) holds d[4j + {0, 1}] = D[16w + g][8j + 2c + {0, 1}]
+// and d[4j + {2, 3}] = D[16w + g + 8][8j + 2c + {0, 1}].
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48],
+                                                const unsigned (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // o (M, F) f32 = sum over `reps` of onehot(idx) (M, N) @ t (N, F) bf16 on
-// the tensor cores. One warp per 16 x 8 output tile; the one-hot A
-// fragment is compared into registers, B read from device memory.
-__global__ void onehot_matmul(const unsigned short* __restrict__ t,
-                              const int* __restrict__ idx,
-                              float* __restrict__ o, int M, int N, int F,
-                              int reps) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
-  const int n_tiles = F / 8;
-  if (warp >= (M / 16) * n_tiles) return;
-  const int m0 = (warp / n_tiles) * 16, n0 = (warp % n_tiles) * 8;
-  const int id_lo = idx[m0 + g], id_hi = idx[m0 + g + 8];
-  constexpr unsigned short kOne = 0x3f80;  // 1.0 in bf16
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int rep = 0; rep < reps; ++rep) {
-    for (int k0 = 0; k0 < N; k0 += 16) {
-      const int k = k0 + 2 * c;
-      unsigned a[4];
-      a[0] = pack_bf16x2(id_lo == k ? kOne : 0, id_lo == k + 1 ? kOne : 0);
-      a[1] = pack_bf16x2(id_hi == k ? kOne : 0, id_hi == k + 1 ? kOne : 0);
-      a[2] = pack_bf16x2(id_lo == k + 8 ? kOne : 0,
-                         id_lo == k + 9 ? kOne : 0);
-      a[3] = pack_bf16x2(id_hi == k + 8 ? kOne : 0,
-                         id_hi == k + 9 ? kOne : 0);
-      const unsigned short* tc = t + (long long)k * F + n0 + g;
-      unsigned b[2];
-      b[0] = pack_bf16x2(tc[0], tc[F]);
-      b[1] = pack_bf16x2(tc[8 * F], tc[9 * F]);
-      mma_bf16_m16n8k16(d, a, b);
-    }
+// the tensor cores: CTA (x, y) stages rows [64x, 64x + 64) of t and runs
+// output rows [64y, 64y + 64); it stores the rows whose index lies in its
+// slab (the note at the head of this file says why that is exact).
+__global__ void __launch_bounds__(128)
+onehot_wgmma(const unsigned short* __restrict__ t, const int* __restrict__ idx,
+             float* __restrict__ o, int N, int reps) {
+  __shared__ __align__(128) unsigned short slab[kOhSlab * kOhF];
+  const int n0 = blockIdx.x * kOhSlab;
+  const int rows = min(kOhSlab, N - n0);  // a multiple of 16
+  const int tid = threadIdx.x;
+  // row k, columns 8nb..8nb+7 of the slab -> core matrix (k / 8, nb), row
+  // k % 8: element (nb * kOhSlab + k) * 8
+  for (int e = tid; e < rows * (kOhF / 8); e += 128) {
+    const int k = e / (kOhF / 8), nb = e - k * (kOhF / 8);
+    cp_async16(slab + (nb * kOhSlab + k) * 8,
+               t + (long long)(n0 + k) * kOhF + nb * 8);
   }
-  float* out = o + (long long)(m0 + g) * F + n0 + 2 * c;
-  out[0] = d[0];
-  out[1] = d[1];
-  out[8 * F] = d[2];
-  out[8 * F + 1] = d[3];
+  cp_async_wait_all();
+  // the copies (generic proxy) must be visible to wgmma (async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int r_lo = blockIdx.y * kOhM + warp * 16 + g, r_hi = r_lo + 8;
+  const int id_lo = idx[r_lo] - n0, id_hi = idx[r_hi] - n0;
+  constexpr unsigned short kOne = 0x3f80;  // 1.0 in bf16
+  unsigned a[kOhKs][4];
+#pragma unroll
+  for (int ks = 0; ks < kOhKs; ++ks) {
+    const int k = ks * 16 + 2 * c;
+    a[ks][0] = pack_bf16x2(id_lo == k ? kOne : 0, id_lo == k + 1 ? kOne : 0);
+    a[ks][1] = pack_bf16x2(id_hi == k ? kOne : 0, id_hi == k + 1 ? kOne : 0);
+    a[ks][2] = pack_bf16x2(id_lo == k + 8 ? kOne : 0,
+                           id_lo == k + 9 ? kOne : 0);
+    a[ks][3] = pack_bf16x2(id_hi == k + 8 ? kOne : 0,
+                           id_hi == k + 9 ? kOne : 0);
+  }
+  float d[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) d[i] = 0.f;
+  // K-adjacent core matrices 128 B apart, N-adjacent kOhSlab * 16 B
+  const uint64_t desc = smem_desc(slab, 128, kOhSlab * 16);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  for (int rep = 0; rep < reps; ++rep) {
+#pragma unroll
+    for (int ks = 0; ks < kOhKs; ++ks)
+      // k-step ks: core-matrix rows 2ks, 2ks + 1 (256 B further)
+      if (ks * 16 < rows) wgmma_m64n96k16(d, a[ks], desc + ks * (256 >> 4));
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+  const bool own_lo = id_lo >= 0 && id_lo < rows;
+  const bool own_hi = id_hi >= 0 && id_hi < rows;
+  float* out_lo = o + (long long)r_lo * kOhF + 2 * c;
+  float* out_hi = o + (long long)r_hi * kOhF + 2 * c;
+#pragma unroll
+  for (int j = 0; j < kOhF / 8; ++j) {
+    if (own_lo)
+      *reinterpret_cast<float2*>(out_lo + 8 * j) =
+          make_float2(d[4 * j], d[4 * j + 1]);
+    if (own_hi)
+      *reinterpret_cast<float2*>(out_hi + 8 * j) =
+          make_float2(d[4 * j + 2], d[4 * j + 3]);
+  }
 }
 
 int launched() { return (int)cudaGetLastError(); }
@@ -245,15 +341,22 @@ extern "C" int tbvh_gather_sum(const float* t, const int* i, float* o, int S,
   return tbvh::launched();
 }
 
-// t (N, F) bf16 bits, idx (M,) -> (M, F) f32: `reps` one-hot products
-// summed; M % 16 == 0, N % 16 == 0, F % 8 == 0.
+// t (N, 96) bf16 bits (16-byte aligned), idx (M,) in [0, N) -> (M, 96)
+// f32: `reps` one-hot products summed; M % 64 == 0, N % 16 == 0.
 extern "C" int tbvh_gather_onehot(const unsigned short* t, const int* idx,
                                   float* o, int M, int N, int F, int reps,
                                   void* stream) {
-  if (M <= 0 || N <= 0 || F <= 0 || M % 16 || N % 16 || F % 8 || reps < 0)
+  if (M <= 0 || N <= 0 || F != tbvh::kOhF || M % tbvh::kOhM || N % 16 ||
+      reps < 0 || reinterpret_cast<std::uintptr_t>(t) % 16)
     return (int)cudaErrorInvalidValue;
-  const int warps = (M / 16) * (F / 8);
-  tbvh::onehot_matmul<<<tbvh::blocks(warps * 32LL, 128), 128, 0,
-                        (cudaStream_t)stream>>>(t, idx, o, M, N, F, reps);
+  const dim3 grid((N + tbvh::kOhSlab - 1) / tbvh::kOhSlab, M / tbvh::kOhM);
+  tbvh::onehot_wgmma<<<grid, 128, 0, (cudaStream_t)stream>>>(t, idx, o, N,
+                                                              reps);
   return tbvh::launched();
+}
+
+// The one-hot kernel's resources (see common.cuh kernel_occupancy).
+extern "C" int tbvh_gather_onehot_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::onehot_wgmma), 128, 0, out);
 }

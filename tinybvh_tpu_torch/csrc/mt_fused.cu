@@ -42,9 +42,9 @@
 //    walk does;
 //  - tiles differ in length (1 to k_cap / kpb super-blocks), and CTAs
 //    start in blockIdx order, so a long tile left for the last wave would
-//    run alone. A one-CTA pre-pass (tile_order) counting-sorts the tiles
-//    by super-block count, longest first, once per launch, and CTA r runs
-//    the r-th tile of that order.
+//    run alone. A one-CTA pre-pass (common.cuh tile_order) counting-sorts
+//    the tiles by super-block count, longest first, once per launch, and
+//    CTA r runs the r-th tile of that order.
 // The gate of the next super-block is compared with the CTA-wide max of
 // best t taken before the current block (NaN propagates, so a NaN gate
 // passes), exactly as on the TPU. Rows are walked in order and only a
@@ -61,7 +61,6 @@ constexpr int kRays = 2;                 // rays per thread
 constexpr int kThreads = kTile / kRays;  // threads per tile
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinCtas = 24 * 32 / kThreads;  // 24 resident warps a SM
-constexpr int kOrderThreads = 1024;      // tile_order's CTA, and its bins
 
 template <int PACK>
 struct RowLayout {
@@ -109,43 +108,6 @@ __device__ __forceinline__ void tri_terms(const float4* g,
     r.hit = r.us >= 0.f && r.vs >= 0.f && __fadd_rn(r.us, r.vs) <= r.ad &&
             r.ts > 0.f && r.ad > 0.f;
   }
-}
-
-// The tiles in descending order of super-block count (counts past
-// kOrderThreads - 2 share the last bin): a counting sort in one CTA. The
-// order within a bin is free, since a tile's result does not depend on
-// the CTA that runs it.
-__global__ void __launch_bounds__(kOrderThreads)
-tile_order(const int* __restrict__ counts, int T, int k_cap, int kpb,
-           int* __restrict__ order) {
-  __shared__ int next[kOrderThreads];  // per bin: its count, then its slot
-  __shared__ int wsum[kOrderThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  auto bin = [&](int t) {
-    const int c = max(min(counts[t], k_cap), 0);
-    return min((c + kpb - 1) / kpb, kOrderThreads - 1);
-  };
-  next[tid] = 0;
-  __syncthreads();
-  for (int t = tid; t < T; t += kOrderThreads) atomicAdd(&next[bin(t)], 1);
-  __syncthreads();
-  // thread i holds bin kOrderThreads - 1 - i: an exclusive prefix over the
-  // bins in descending order gives each bin's first slot
-  const int h = next[kOrderThreads - 1 - tid];
-  int inc = h;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc += n;
-  }
-  if (lane == 31) wsum[warp] = inc;
-  __syncthreads();
-  int first = inc - h;
-  for (int w = 0; w < warp; ++w) first += wsum[w];
-  next[kOrderThreads - 1 - tid] = first;
-  __syncthreads();
-  for (int t = tid; t < T; t += kOrderThreads)
-    order[atomicAdd(&next[bin(t)], 1)] = t;
 }
 
 // The best hit of one ray: its t and the winner, 2 x row + (1 for

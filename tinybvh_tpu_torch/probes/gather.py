@@ -41,11 +41,12 @@ import torch
 from tinybvh_tpu_torch import _build
 from tinybvh_tpu_torch.core.rays import default_device
 from tinybvh_tpu_torch._timing import events_ms, graph_ms
-from tinybvh_tpu_torch.traverse.packet2 import _check, _on_cuda
+from tinybvh_tpu_torch.traverse.packet2 import _check, _count, _on_cuda
 
 F, W = 8, 128          # the (8, 128) block of the lane and chain forms
 ROUNDS = 100           # chained rounds of A100 and C100
 REPS = 10              # one-hot products of D
+ONEHOT_M, ONEHOT_F = 64, 96  # D's kernel: 64-row output blocks, 96 columns
 N_TIMED = 200          # launches timed by events and by a CUDA graph
 LAUNCHES = {"row_gather": 0, "col_gather": 0, "lane_gather": 0,
             "sublane_gather": 0, "flat_take": 0, "chain_gather": 0,
@@ -60,8 +61,7 @@ def _launch(name, entry, *args):
     err = getattr(_build.kernels(), entry)(
         *conv, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
-    if not torch.cuda.is_current_stream_capturing():
-        LAUNCHES[name] += 1
+    _count(LAUNCHES, name)
 
 
 # ---- row: table rows by index (pallas_gather_probe.py:20) ----------------
@@ -211,9 +211,10 @@ def onehot_gather(t, idx):
     M = idx.shape[0]
     _check("onehot t", t, torch.bfloat16, (N, Ft))
     _check("onehot idx", idx, torch.int32, (M,))
-    if M % 16 or N % 16 or Ft % 8:
-        raise ValueError(f"onehot_gather: M {M} and N {N} must be multiples "
-                         f"of 16, F {Ft} of 8")
+    if M % ONEHOT_M or N % 16 or Ft != ONEHOT_F or t.data_ptr() % 16:
+        raise ValueError(f"onehot_gather: M {M} must be a multiple of "
+                         f"{ONEHOT_M}, N {N} of 16, F {Ft} must be "
+                         f"{ONEHOT_F} and t 16-byte aligned")
     out = torch.empty((M, Ft), dtype=torch.float32, device=t.device)
     _launch("onehot_gather", "tbvh_gather_onehot", t, idx, out, M, N, Ft, REPS)
     return out

@@ -54,7 +54,7 @@ from tinybvh_tpu_torch.core.rays import default_device
 from tinybvh_tpu_torch._timing import events_ms, graph_ms, once_ms
 from tinybvh_tpu_torch.traverse.packet import TILE
 from tinybvh_tpu_torch.traverse.packet2 import (
-    _I32MAX, _LEAF_BITS, _check, _features, _on_cuda,
+    _I32MAX, _LEAF_BITS, _check, _count, _features, _on_cuda,
 )
 
 VARIANTS = ("full", "seg8", "seg32", "bigdma", "nodma", "mathonly", "bf16",
@@ -252,8 +252,7 @@ def _ablation_cuda(keys, counts, lbg, tmax, o_t, d_t, gtab, variant: str):
         VARIANTS.index(variant),
         torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check(err, "tbvh_mt_ablation")
-    if not torch.cuda.is_current_stream_capturing():   # a graph runs it
-        LAUNCHES["mt_ablation"] += 1
+    _count(LAUNCHES, "mt_ablation")
     return t, i
 
 

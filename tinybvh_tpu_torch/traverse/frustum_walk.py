@@ -9,7 +9,8 @@ the tile's 4 planes and lists the surviving leaves in visit order. The
 plain PyTorch twin `_walk_plain` steps every tile's walk in lockstep, one
 pop per tile per step, and gives the same lists, overflow included. A
 wrapper runs the twin only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises. `LAUNCHES` counts kernel launches."""
+launches the kernel or raises. `LAUNCHES` counts kernel launches (not
+calls a CUDA graph captures)."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from tinybvh_tpu_torch import _build
 from tinybvh_tpu_torch.layouts.mbvh import EMPTY_SLOT
-from tinybvh_tpu_torch.traverse.packet2 import _check, _on_cuda
+from tinybvh_tpu_torch.traverse.packet2 import _check, _count, _on_cuda
 
 STACK = 64
 _I32MAX = 2**31 - 1
@@ -115,7 +116,7 @@ def _walk_cuda(bounds, child, planes, ndoto, max_leaves: int):
                                 leaves.data_ptr(), counts.data_ptr(), T,
                                 max_leaves, _max_steps(M), stream)
     _build.check(err, "tbvh_frustum_walk")
-    LAUNCHES["frustum_walk"] += 1
+    _count(LAUNCHES, "frustum_walk")
     return leaves, counts
 
 

@@ -17,7 +17,14 @@ one device function (csrc/common.cuh classic_mt) and the twins one torch
 function (`_classic_mt`), each product and sum rounded on its own in the
 JAX order, so kernel and twin agree bit for bit. A wrapper runs the twin
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises. `LAUNCHES` counts kernel launches (never twin calls)."""
+raises. `LAUNCHES` counts kernel launches (never twin calls, nor calls
+a CUDA graph captures).
+
+Kernel D tests only the rows that can hit (e2 not zero: the engine's
+lists pad each tile with zero rows after its live leaves), two rays a
+thread, the rows streamed through shared memory by cp.async; the twin
+tests every row, and both give the same result (a dead row only misses).
+"""
 
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import torch
 
 from tinybvh_tpu_torch import _build
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
-from tinybvh_tpu_torch.traverse.packet2 import _check, _on_cuda
+from tinybvh_tpu_torch.traverse.packet2 import _check, _count, _on_cuda
 
 TILE = 256
 LAUNCHES = {"leaf_resolve_v2": 0, "leaf_resolve_v3": 0, "leaf_resolve": 0}
@@ -154,7 +161,7 @@ def _resolve_v2_cuda(o_t, d_t, geom, wide: bool = False):
                                    idx.data_ptr(), T, K4, int(wide),
                                    _v3_block(K4), stream)
     _build.check(err, "tbvh_leaf_resolve_v2")
-    LAUNCHES["leaf_resolve_v3" if wide else "leaf_resolve_v2"] += 1
+    _count(LAUNCHES, "leaf_resolve_v3" if wide else "leaf_resolve_v2")
     return t, idx
 
 
@@ -224,7 +231,7 @@ def _resolve_cuda(o_t, d_t, geom, live, rows):
                                 rows.data_ptr(), t.data_ptr(), pk.data_ptr(),
                                 T, K, stream)
     _build.check(err, "tbvh_leaf_resolve")
-    LAUNCHES["leaf_resolve"] += 1
+    _count(LAUNCHES, "leaf_resolve")
     return t, pk
 
 

@@ -22,7 +22,7 @@ PyTorch twin of the same signature beside it:
 
 A wrapper runs the plain twin only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts kernel
-launches (never plain-twin calls).
+launches (never plain-twin calls, nor calls a CUDA graph captures).
 
 Everything around the kernels (tile frusta, the coarse block tier, the
 worklist compaction, block ordering or the full key sort, offset
@@ -191,6 +191,13 @@ def _on_cuda(name, *tensors) -> bool:
     raise ValueError(f"{name}: unsupported device {dev}")
 
 
+def _count(table, name) -> None:
+    """One more launch of `name` in `table`, unless a CUDA graph captures
+    the call (recorded there, not run: the graph's replays run it)."""
+    if not torch.cuda.is_current_stream_capturing():
+        table[name] += 1
+
+
 def _check(name, t, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -255,7 +262,7 @@ def _cull_blocks_cuda(desc, blk_lo, blk_hi, n_blocks: int):
                                blk_hi.data_ptr(), mask.data_ptr(), G, nbpad,
                                n_blocks, stream)
     _build.check(err, "tbvh_cull_blocks")
-    LAUNCHES["cull_blocks"] += 1
+    _count(LAUNCHES, "cull_blocks")
     return mask
 
 
@@ -356,7 +363,7 @@ def _cull_cuda(nblk, wl, desc, llo, lhi, n_leaves: int, k_cap: int,
                         cnt.data_ptr(), G, max_blocks, spad, n_leaves,
                         k_cap, leaf_bits, stream)
     _build.check(err, "tbvh_cull")
-    LAUNCHES["cull"] += 1
+    _count(LAUNCHES, "cull")
     return keys, cnt
 
 
@@ -609,7 +616,7 @@ def _mt_fused_cuda(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
                             T, k_cap, nb, tri_blk, rps, pack, int(any_hit),
                             stream)
     _build.check(err, "tbvh_mt_fused")
-    LAUNCHES["mt_fused"] += 1
+    _count(LAUNCHES, "mt_fused")
     return tuple(outs)
 
 
@@ -720,7 +727,7 @@ def _mt_cuda(o_t, d_t, geom, lbg, tmax):
                                tmax.data_ptr(), t.data_ptr(), idx.data_ptr(),
                                T, K4, nb, stream)
     _build.check(err, "tbvh_mt_gathered")
-    LAUNCHES["mt_gathered"] += 1
+    _count(LAUNCHES, "mt_gathered")
     return t, idx
 
 
