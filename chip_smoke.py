@@ -2,7 +2,7 @@
 """Drive the PyTorch / CUDA port's main path once on one GPU.
 
     python3 chip_smoke.py          # every phase
-    python3 chip_smoke.py --v1     # phases 1-2 and 11 only, no JSON lines
+    python3 chip_smoke.py --resolves   # phases 1-2, 6 and 11, no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -26,8 +26,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      128), and the API's default path (primary and shadow, wavefront
      retrace) gated by the oracles, with its peak device memory;
   6. kernels C and G against their twins: C at the fused=False path's
-     shapes (T=1600 tiles, max_leaves=512, K4=2048 rows), G at the API's
-     cull descriptors (G=200 groups); each with its device time;
+     shapes (T=1600 tiles, max_leaves=512, K4=2048 rows) with the rows
+     its result needs (live rows of the walked blocks) beside the walked
+     ones, G at the API's cull descriptors (G=200 groups); each with its
+     device time; then a line of their registers, shared memory and
+     resident CTAs per SM;
   7. the cull-stage probes' path (benchmarks/cull_stage_probe.py): the
      coarse tier through kernel G, the worklists, kernel A; equal to the
      production cull's worklists, survivor counts and keys;
@@ -47,8 +50,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      with zero overflowed tiles and the oracle gates, prims equal across
      modes; kernels D (v2 and v3 bodies), E and F against their twins bit
      for bit (F also at 64 leaves, where tiles overflow), each with its
-     device time (a CUDA graph), D with its live rows and a line of its
-     registers, shared memory and resident CTAs per SM; the shadow
+     device time (a CUDA graph), D with its live rows, E with the nonzero
+     triangles of its live leaves, and a line of the registers, shared
+     memory and resident CTAs per SM of D, E and F; the shadow
      segments of phase 4's light through is_occluded_packets (kernel D,
      2048 leaves, pair cap 512: see V1_SHADOW)
      and the rays, shuffled inside each tile, through
@@ -363,6 +367,15 @@ def live_rows(geom, n_run=None):
         live &= (torch.arange(geom.shape[1], device=geom.device)
                  < n_run[:, None])
     return int(live.sum())
+
+
+def live_tris(geom, live):
+    """Nonzero triangles (a field of the 9 not zero) of the live leaves
+    (live > 0) of x-major leaf rows geom (T, K, 48): the triangles kernel
+    E's result needs, as live_rows counts kernel D's rows."""
+    T, K = geom.shape[:2]
+    nz = (geom[..., :36].reshape(T, K, 9, 4) != 0).any(dim=2)
+    return int((nz & (live > 0)[..., None]).sum())
 
 
 def fused_tests(b, n_sb):
@@ -691,15 +704,17 @@ def phase_kernels_cg(bvh, rays, cull_args, gpu_line, n_kernel=20,
     if not (torch.equal(i_k, i_p) and torch.equal(t_k, t_p)):
         raise AssertionError("mt_gathered: t or row differs from the plain "
                              "twin")
+    n_walked = int(n_blk.sum()) * packet2.TRI_BLK
+    n_live = live_rows(c[2], n_blk * packet2.TRI_BLK)
     out["mt_gathered"] = dict(
         max_abs_err=float((t_k - t_p).abs().max()),
         ms=time_ms(lambda: kern(*c), dev, n_kernel),
         device_ms=device_ms(lambda: kern(*c), n_kernel) if on_gpu else None,
         plain_ms=time_ms(lambda: plain_c(*c), dev, n_plain),
-        shape=f"T={c[2].shape[0]} K4={c[2].shape[1]}",
+        shape=f"T={c[2].shape[0]} K4={c[2].shape[1]} ({n_live} live rows "
+              f"of {n_walked} walked)",
         # live rows of the 128-row blocks each tile ran before its gate
-        **bound("mt_gathered", c, (t_k, i_k),
-                live_rows(c[2], n_blk * packet2.TRI_BLK) * 256))
+        **bound("mt_gathered", c, (t_k, i_k), n_live * 256))
 
     aux = bvh.packet_aux
     g = (cull_args[2], aux.blk_lo, aux.blk_hi, aux.n_blocks)
@@ -1064,9 +1079,13 @@ def phase_v1(bvh, rays, center, extent, gpu_line):
     if not (torch.equal(t_e, t_v2) and torch.equal(t_v3, t_v2)):
         raise AssertionError("kernels E, D-v3 and D-v2 disagree on t")
     k_e = lr._resolve_cuda if on_gpu else lr._resolve_plain
+    n_leaves = int(live.sum())
+    n_tris = live_tris(e_args[2], live)
     out["leaf_resolve"] = kernel_entry(
-        "leaf_resolve", k_e, lr._resolve_plain, e_args,
-        int(live.sum()) * 4 * 256, dev, f"T={T} K={leaves.shape[1]}")
+        "leaf_resolve", k_e, lr._resolve_plain, e_args, n_tris * 256, dev,
+        f"T={T} K={leaves.shape[1]} ({n_tris} nonzero triangles in "
+        f"{n_leaves} live leaves; the earlier yardstick counted 4 a leaf, "
+        f"{4 * n_leaves})")
 
     # kernel F on the F + D trace's planes, at 512 leaves and at 64
     f_args = rec_f["collect_tile_leaves_kernel"][0]
@@ -1753,23 +1772,20 @@ def phase_probes(bvh, gpu_line, n_plain=20):
     return kern, launches
 
 
-def phase_v1_occupancy(gpu_line):
-    """Registers, shared memory and resident CTAs per SM of kernel D's two
-    bodies as the package launches them."""
+def print_occupancy(phase, entries, gpu_line):
+    """One line of the registers, shared memory and resident CTAs per SM
+    of kernels as the package launches them: name -> (C entry, *args)."""
     from tinybvh_tpu_torch import _build
 
-    print("phase 11 occupancy of kernel D: " + "; ".join(
-        f"{name}: "
-        + occupancy_text(_build.occupancy("tbvh_leaf_resolve_v2_occupancy",
-                                          wide))
-        for name, wide in (("v2", 0), ("v3", 1))) + f" [{gpu_line}]",
-        flush=True)
+    print(f"phase {phase} occupancy: " + "; ".join(
+        f"{name}: {occupancy_text(_build.occupancy(*entry))}"
+        for name, entry in entries.items()) + f" [{gpu_line}]", flush=True)
 
 
 def main(argv=()):
     import torch
 
-    v1_only = "--v1" in argv
+    resolves_only = "--resolves" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1805,8 +1821,16 @@ def main(argv=()):
     tris = random_tris(65536, seed=0)
     scene = setup_scene(tris, dev, 640)
     bvh, rays, _, extent, _ = scene
-    if v1_only:
-        # phase 11 alone (it reads nothing of the other phases)
+    if resolves_only:
+        # phases 6 and 11 alone, on the API cull's descriptors
+        from tinybvh_tpu_torch.traverse import packet2
+
+        rec, restore = capture(packet2, ("cull",))
+        try:
+            bvh.intersect(rays)
+        finally:
+            restore()
+        phase_kernels_cg(bvh, rays, rec["cull"][0], gpu_line)
         phase_v1(bvh, rays, scene[2], extent, gpu_line)
         return 0
     kern, cull_args, mt_args = phase_kernels(bvh, rays, gpu_line)
@@ -1814,6 +1838,8 @@ def main(argv=()):
     launches, shadow = phase_api(*scene, gpu_line)
     phase_grid(grid_scene(tris, 4, 4), dev, 640, gpu_line)
     kern.update(phase_kernels_cg(bvh, rays, cull_args, gpu_line))
+    print_occupancy(6, {"C": ("tbvh_mt_gathered_occupancy",),
+                        "G": ("tbvh_cull_blocks_occupancy",)}, gpu_line)
     launches.update(cull_blocks=phase_cull_stage(
         bvh, cull_args, gpu_line)["cull_blocks"])
     launches.update(mt_gathered=phase_unfused(bvh, rays,
@@ -1821,7 +1847,11 @@ def main(argv=()):
     phase_retrace(bvh, rays, shadow, gpu_line)
     phase_off_packets(bvh, rays, extent, gpu_line)
     v1_kern, v1_launches = phase_v1(bvh, rays, scene[2], extent, gpu_line)
-    phase_v1_occupancy(gpu_line)
+    print_occupancy(11, {
+        "D-v2": ("tbvh_leaf_resolve_v2_occupancy", 0),
+        "D-v3": ("tbvh_leaf_resolve_v2_occupancy", 1),
+        "E": ("tbvh_leaf_resolve_occupancy",),
+        "F": ("tbvh_frustum_walk_occupancy",)}, gpu_line)
     kern.update(v1_kern)
     launches.update(v1_launches)
     tlas_launches = phase_inst512(bvh, tris, gpu_line)

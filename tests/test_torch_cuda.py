@@ -593,6 +593,244 @@ def test_leaf_resolve_kernel_matches_plain(scene, max_leaves):
     assert bool((tr < 1e30).any())
 
 
+# Kernels C and E on constructed inputs (also held against JAX on the CPU
+# by tests/test_torch_resolve_edges.py): rays from z = -4 towards +z, two
+# rays a thread as the kernels take them; triangles between z = 0 and 3.
+MT_EDGE_CASES = ("interleaved", "empty_blocks", "misses_at_inf", "nan",
+                 "ties", "k4_128", "k4_384_gates", "nonfinite_rays")
+# the winning row of every ray in the ties case, per tile: the first copy
+MT_TIE_ROWS = (10, 200)
+LEAF_RESOLVE_EDGE_CASES = ("interleaved", "last_chunk", "zero_tris", "ties",
+                           "one_tile")
+# the packed winner of every ray in the ties case, per tile: rows[leaf] * 4
+# + lane of the first (leaf, lane) holding the copy
+LEAF_RESOLVE_TIE_LEAVES = ((5, 2), (10, 1))
+
+
+def _edge_rays(rng, T):
+    """(o_t, d_t) (T, 3, 256) f32: origins near (0, 0, -4), directions near
+    +z, every ray in front of the triangles of _edge_tris."""
+    o = np.zeros((T, 3, 256), np.float32)
+    o[:, :2] = rng.uniform(-0.05, 0.05, (T, 2, 256))
+    o[:, 2] = -4.0
+    d = np.ones((T, 3, 256))
+    d[:, :2] = rng.uniform(-0.1, 0.1, (T, 2, 256))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d
+
+
+def _edge_tris(rng, n, z=(0.0, 3.0), x=(-0.4, 0.4)):
+    """n random triangles (n, 3, 3) around the rays' paths."""
+    c = np.stack([rng.uniform(*x, n), rng.uniform(-0.4, 0.4, n),
+                  rng.uniform(*z, n)], -1)
+    return c[:, None] + rng.uniform(-0.6, 0.6, (n, 3, 3)) * [1, 1, 0.2]
+
+
+def mt_rows(tris):
+    """(n, 48) kernel C rows [G_det | G_u | G_v | G_t] of triangles (n, 3,
+    3), in build_packet_aux's form: G_det = [n, 0...], G_u = [-(v0 x e2),
+    -e2, 0...], G_v = [v0 x e1, e1, 0...], G_t = [0, 0, -n, n.v0, 0, 0]."""
+    v0 = tris[:, 0]
+    e1 = tris[:, 1] - v0
+    e2 = tris[:, 2] - v0
+    nrm = np.cross(e1, e2)
+    g = np.zeros((len(tris), 48))
+    g[:, 0:3] = nrm
+    g[:, 12:15] = -np.cross(v0, e2)
+    g[:, 15:18] = -e2
+    g[:, 24:27] = np.cross(v0, e1)
+    g[:, 27:30] = e1
+    g[:, 42:45] = -nrm
+    g[:, 45] = (nrm * v0).sum(-1)
+    return g
+
+
+def _far_rows(n):
+    """Rows that every ray hits at t = 1e31, past BVH_FAR (only lane 9 of
+    each part is set: det 1, u' = v' = 0.25, t' = 1e31)."""
+    g = np.zeros((n, 48))
+    g[:, 9], g[:, 21], g[:, 33], g[:, 45] = 1.0, 0.25, 0.25, 1e31
+    return g
+
+
+def mt_edge_inputs(case, seed=0):
+    """(o_t, d_t (T, 3, 256), geom (T, K4, 48), lbg (T, 1, K4 / 128),
+    tmax (T, 1, 1)) numpy f32 of one kernel C case. Dead rows are zero;
+    gates are 0, tmax 1e30 unless a case says otherwise.
+    interleaved: rows 0-399 live where r % 3 != 1, a third of them off
+      build_packet_aux's form (det lane 5 set), rows 9 and 50 with a
+      non-finite lane 10 (they miss every ray);
+    empty_blocks: tile 0's block 1 holds no live row; tile 1 no live row
+      at all; tile 2 none either, with tmax = +inf (row 0 of block 0
+      then wins at kFar);
+    misses_at_inf: tmax = +inf; tile 0's block 0 holds only triangles
+      beside the rays, block 1 hits; tile 1's rows 0-1 are hit past kFar,
+      row 2 is missed and row 3 dead (row 2 wins at kFar); tile 2's rows
+      0-1 are hit past kFar and row 2 is dead (row 2 wins);
+    nan: tile 0's block 0 holds a row hit at t = NaN (inf / inf) beside
+      real hits, which it hides; tile 1 has tmax = NaN; tile 2 a NaN gate
+      at block 1;
+    ties: one large triangle copied to rows 10, 70 and 130 (tile 0) and
+      200 and 300 (tile 1) in front of random ones: exact ties within a
+      block and across blocks;
+    k4_128: K4 = 128, one block; k4_384_gates: K4 = 384 (an odd number of
+      blocks) with distance gates 0, 4 and 6.5: block 0 hits every ray
+      near t = 4.2, so block 1 runs and block 2 does not;
+    nonfinite_rays: tile 0's ray 17 has o.x = inf and ray 18 d.y = NaN
+      (their features are not finite), tile 1 is plain."""
+    rng = np.random.default_rng(seed)
+    T, K4 = {"empty_blocks": 3, "nan": 3, "misses_at_inf": 3}.get(case,
+                                                                  2), 512
+    if case == "k4_128":
+        K4 = 128
+    elif case == "k4_384_gates":
+        K4 = 384
+    o, d = _edge_rays(rng, T)
+    g = np.zeros((T, K4, 48))
+    lbg = np.zeros((T, 1, K4 // 128))
+    tmax = np.full((T, 1, 1), 1e30)
+    if case == "interleaved":
+        r = np.arange(400)
+        live = r[r % 3 != 1]
+        for t in range(T):
+            g[t, live] = mt_rows(_edge_tris(rng, len(live)))
+            g[t, live[::3], 5] = 1e-3
+            g[t, [9, 50], 22 + 12 * t] = np.inf
+    elif case == "empty_blocks":
+        g[0, :128] = mt_rows(_edge_tris(rng, 128))
+        g[0, 256:300] = mt_rows(_edge_tris(rng, 44))
+        tmax[2] = np.inf
+    elif case == "misses_at_inf":
+        tmax[:] = np.inf
+        g[0, :100] = mt_rows(_edge_tris(rng, 100, x=(5.0, 6.0)))
+        g[0, 128:228] = mt_rows(_edge_tris(rng, 100))
+        g[1, :2] = _far_rows(2)
+        g[1, 2] = mt_rows(_edge_tris(rng, 1, x=(5.0, 6.0)))[0]
+        g[1, 4:100] = mt_rows(_edge_tris(rng, 96, x=(5.0, 6.0)))
+        g[2, :2] = _far_rows(2)
+        g[2, 3:60] = mt_rows(_edge_tris(rng, 57, x=(5.0, 6.0)))
+    elif case == "nan":
+        for t in range(T):
+            g[t, :256] = mt_rows(_edge_tris(rng, 256))
+        g[0, 5] = 0.0
+        g[0, 5, 9], g[0, 5, 45] = np.inf, np.inf
+        tmax[1] = np.nan
+        lbg[2, 0, 1] = np.nan
+    elif case == "ties":
+        big = mt_rows(np.array([[[-3, -3, 0.5], [5, -3, 0.5], [-3, 5, 0.5]]]))
+        for t, rows in enumerate(((10, 70, 130), (200, 300))):
+            g[t, :400] = mt_rows(_edge_tris(rng, 400, z=(1.0, 3.0)))
+            g[t, list(rows)] = big[0]
+    elif case == "k4_128":
+        r = np.arange(K4)
+        for t in range(T):
+            live = r[(r * 7 + t) % 5 < 3]
+            g[t, live] = mt_rows(_edge_tris(rng, len(live)))
+    elif case == "k4_384_gates":
+        near = np.array([[[-3, -3, 0.2], [5, -3, 0.2], [-3, 5, 0.2]]])
+        for t in range(T):
+            g[t] = mt_rows(_edge_tris(rng, K4, z=(0.5, 3.0)))
+            g[t, 60] = mt_rows(near)[0]
+        lbg[:, 0] = (0.0, 4.0, 6.5)
+    elif case == "nonfinite_rays":
+        for t in range(T):
+            g[t, :300] = mt_rows(_edge_tris(rng, 300))
+        o[0, 0, 17] = np.inf
+        d[0, 1, 18] = np.nan
+    else:
+        raise ValueError(case)
+    return (o, d, g.astype(np.float32), lbg.astype(np.float32),
+            tmax.astype(np.float32))
+
+
+def leaf_resolve_edge_inputs(case, seed=0):
+    """(o_t, d_t (T, 3, 256), geom (T, K, 48), live (T, K), rows (T, K))
+    numpy of one kernel E case: x-major leaves [v0x*4 | v0y*4 | v0z*4 |
+    e1.. | e2.. | pad], live flags, and leaf row ids (a permutation of
+    1000 + leaf).
+    interleaved: K = 100 (not a multiple of the 32-leaf chunk), leaves with
+      j % 3 == 1 dead though they hold triangles;
+    last_chunk: K = 100, live leaves only in the last, partial chunk;
+    zero_tris: K = 96, every leaf's lane 3 zero and lane 1 zero in every
+      other leaf;
+    ties: K = 128, one large triangle at leaf 5 lanes 2 and 3 and leaf 40
+      lane 0 (tile 0), at leaf 10 lane 1 and leaf 70 lane 0 (tile 1), in
+      front of random ones: ties across lanes and across leaves;
+    one_tile: T = 1, K = 64."""
+    rng = np.random.default_rng(seed)
+    T, K = {"ties": (2, 128), "zero_tris": (2, 96),
+            "one_tile": (1, 64)}.get(case, (2, 100))
+    o, d = _edge_rays(rng, T)
+    tris = _edge_tris(rng, T * K * 4).reshape(T, K, 4, 3, 3)
+    live = np.ones((T, K), np.int32)
+    if case == "interleaved":
+        live[:, np.arange(K) % 3 == 1] = 0
+    elif case == "last_chunk":
+        live[:, :96] = 0
+    elif case == "zero_tris":
+        tris[:, :, 3] = 0.0
+        tris[:, ::2, 1] = 0.0
+    elif case == "ties":
+        tris[..., 2] = np.maximum(tris[..., 2], 1.0)
+        big = np.array([[-3, -3, 0.5], [5, -3, 0.5], [-3, 5, 0.5]])
+        for t, spots in enumerate((((5, 2), (5, 3), (40, 0)),
+                                   ((10, 1), (70, 0)))):
+            for leaf, lane in spots:
+                tris[t, leaf, lane] = big
+    elif case != "one_tile":
+        raise ValueError(case)
+    v0 = tris[..., 0, :]
+    e1 = tris[..., 1, :] - v0
+    e2 = tris[..., 2, :] - v0
+    fields = [f[..., k] for f in (v0, e1, e2) for k in range(3)]
+    geom = np.concatenate(fields + [np.zeros((T, K, 12))], axis=-1)
+    rows = np.stack([rng.permutation(K) + 1000 for _ in range(T)])
+    return (o, d, geom.astype(np.float32), live, rows.astype(np.int32))
+
+
+def _bits(x):
+    """A float tensor's bits (so that NaN outputs compare equal)."""
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", MT_EDGE_CASES)
+def test_mt_gathered_kernel_edge_cases(case):
+    """Kernel C (it skips rows that can only miss, the zero lanes of
+    build_packet_aux rows and the rest of a row no ray of a warp can hit)
+    against its twin (every row, all 12 lanes) on the edge cases: t bit
+    for bit (NaN included) and rows equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    args = tuple(torch.from_numpy(x).cuda() for x in mt_edge_inputs(case))
+    t, i = packet2._mt_cuda(*args)
+    tr, ir, _ = packet2._mt_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir) and torch.equal(_bits(t), _bits(tr))
+    if case == "ties":
+        want = torch.tensor(MT_TIE_ROWS, dtype=torch.int32,
+                            device="cuda")[:, None]
+        assert bool((i == want).all())
+
+
+@pytest.mark.parametrize("case", LEAF_RESOLVE_EDGE_CASES)
+def test_leaf_resolve_kernel_edge_cases(case):
+    """Kernel E (it skips dead leaves and zero triangles, and orders the
+    tiles by their live leaves) against its twin on the edge cases, bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    o_t, d_t, geom, live, rows = (torch.from_numpy(x).cuda() for x in
+                                  leaf_resolve_edge_inputs(case))
+    t, p = lr._resolve_cuda(o_t, d_t, geom, live, rows)
+    tr, pr = lr._resolve_plain(o_t, d_t, geom, live, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(p, pr) and torch.equal(t, tr)
+    if case == "ties":
+        want = [int(rows[k, leaf]) * 4 + lane for k, (leaf, lane) in
+                enumerate(LEAF_RESOLVE_TIE_LEAVES)]
+        assert bool((p == torch.tensor(want, device="cuda")[:, None]).all())
+
+
 @pytest.mark.parametrize("max_leaves", [512, 16])
 def test_frustum_walk_kernel_matches_plain(scene, max_leaves):
     """Kernel F: every tile's list and count equal the twin's; at 16

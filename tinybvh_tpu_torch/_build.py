@@ -102,14 +102,18 @@ _SIGNATURES = {
     "tbvh_mt_fused_occupancy": [_I, _P],
     # mt_gathered.cu
     "tbvh_mt_gathered": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tbvh_mt_gathered_occupancy": [_P],
     # cull_blocks.cu
     "tbvh_cull_blocks": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tbvh_cull_blocks_occupancy": [_P],
     # leaf_resolve.cu
     "tbvh_leaf_resolve_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tbvh_leaf_resolve_v2_occupancy": [_I, _P],
     "tbvh_leaf_resolve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tbvh_leaf_resolve_occupancy": [_P],
     # frustum_walk.cu
     "tbvh_frustum_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tbvh_frustum_walk_occupancy": [_P],
     # gather_probe.cu
     "tbvh_gather_row": [_P, _P, _P, _I, _I, _P],
     "tbvh_gather_col": [_P, _P, _P, _I, _I, _P],

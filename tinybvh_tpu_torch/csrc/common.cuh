@@ -48,36 +48,14 @@ __device__ __forceinline__ bool frustum_outside(const float* d,
   return outside;
 }
 
-// Triple-product Möller–Trumbore terms of kernel C (kernel B's tri_terms in
-// mt_fused.cu computes the same terms from float4 reads): det, u', v', t'
-// as 12-lane dots of one triangle's 48-lane row g ([G_det|G_u|G_v|G_t])
-// with the ray features f = [d, o x d, o, 1, 0, 0], in lane order, then
-// sign-flipped so det >= 0. Twin: packet2.py _signed_terms.
+// Sign-flipped Möller–Trumbore terms of one triangle row against one ray
+// (det >= 0): kernel B's tri_terms in mt_fused.cu computes them as 12-lane
+// dots of the row [G_det|G_u|G_v|G_t] with the ray features f = [d, o x d,
+// o, 1, 0, 0] in lane order. Twin: packet2.py _signed_terms.
 struct SignedTerms {
   float ad, us, vs, ts;
   bool hit;
 };
-
-__device__ __forceinline__ SignedTerms signed_terms(const float* g,
-                                                    const float* f) {
-  float det = 0.f, up = 0.f, vp = 0.f, tp = 0.f;
-#pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    det = __fadd_rn(det, __fmul_rn(g[k], f[k]));
-    up = __fadd_rn(up, __fmul_rn(g[12 + k], f[k]));
-    vp = __fadd_rn(vp, __fmul_rn(g[24 + k], f[k]));
-    tp = __fadd_rn(tp, __fmul_rn(g[36 + k], f[k]));
-  }
-  const float s = det >= 0.f ? 1.f : -1.f;
-  SignedTerms r;
-  r.ad = __fmul_rn(det, s);
-  r.us = __fmul_rn(up, s);
-  r.vs = __fmul_rn(vp, s);
-  r.ts = __fmul_rn(tp, s);
-  r.hit = r.us >= 0.f && r.vs >= 0.f && __fadd_rn(r.us, r.vs) <= r.ad &&
-          r.ts > 0.f && r.ad > 0.f;
-  return r;
-}
 
 // Classic Möller–Trumbore of kernels D and E (≙ the expression of the JAX
 // leaf kernels, tinybvh_tpu/traverse/pallas_leaf.py:120-135): one ray
@@ -121,12 +99,18 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
 }
 
-// CTA-wide max of v over a kTile-thread CTA (NaN-propagating, as jnp.max
-// and torch.amax). red: kTile / 32 floats of shared memory.
-__device__ __forceinline__ float block_max(float v, float* red) {
+// Max of v over the 32 lanes of a warp (NaN-propagating).
+__device__ __forceinline__ float warp_nan_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// CTA-wide max of v over a kTile-thread CTA (NaN-propagating, as jnp.max
+// and torch.amax). red: kTile / 32 floats of shared memory.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_nan_max(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float r = red[0];
@@ -141,6 +125,13 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// One 4-byte copy from device to shared memory (cp.async, through L1).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 

@@ -62,3 +62,10 @@ extern "C" int tbvh_cull_blocks(const float* desc, const float* blo,
       desc, blo, bhi, mask, nbpad, n_blocks);
   return (int)cudaGetLastError();
 }
+
+// Kernel G's resources (see common.cuh kernel_occupancy).
+extern "C" int tbvh_cull_blocks_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::cull_blocks_kernel), tbvh::kLanes,
+      0, out);
+}

@@ -136,3 +136,10 @@ extern "C" int tbvh_frustum_walk(const float* bounds, const int* child,
       bounds, child, planes, ndoto, leaves, counts, T, K, max_steps);
   return (int)cudaGetLastError();
 }
+
+// Kernel F's resources (see common.cuh kernel_occupancy).
+extern "C" int tbvh_frustum_walk_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::frustum_walk_kernel),
+      32 * tbvh::kWarpsPerCta, 0, out);
+}

@@ -14,20 +14,20 @@
 // ~56 flops of classic Möller–Trumbore, and a row (48 B for D, 192 B per
 // 4 triangles for E) is shared by all 256 rays of the tile, so device
 // memory traffic is K4 x 48 B per tile against K4 x 256 x 56 flops. The
-// arithmetic is common.cuh classic_mt, shared by D and E: every product
-// and sum rounded on its own in the JAX order (no FMA) and an IEEE
-// reciprocal, so the kernels equal the plain PyTorch twins bit for bit;
-// that halves the fp32 rate the bound assumes, so the floor of this
-// design is about twice the bound. Inputs are finite (make_rays validates
-// rays, the tables are built from finite triangles), so no NaN rule is
-// needed. Tie rules are the JAX kernels':
+// arithmetic is common.cuh classic_mt (D) and its staged copy test_tri
+// (E): every product and sum rounded on its own in the JAX order (no FMA)
+// and an IEEE reciprocal, so the kernels equal the plain PyTorch twins
+// bit for bit; that halves the fp32 rate the bound assumes, so the floor
+// of this design is about twice the bound. Inputs are finite (make_rays
+// validates rays, the tables are built from finite triangles), so no NaN
+// rule is needed. Tie rules are the JAX kernels':
 //   D-v2: the first minimum in row order (a sequential strict-< scan);
 //   D-v3: the least key (t, idx % B, idx / B), B = 256, 128 or 32 as the
 //         largest that divides K4 (the TPU kernel's per-sublane running
 //         best, then its argmin over sublanes);
 //   E:    per leaf the first lane of the minimum, across leaves strict <.
 //
-// What D's design does about it (E keeps the one-ray-a-thread design):
+// What D's design does about it:
 //  - rows that can only miss are not tested. The v1 engine's lists hold
 //    the live leaves first and I32MAX padding after them, gathered as
 //    zero rows, and leaves of fewer than 4 triangles add zero rows: at the
@@ -57,6 +57,32 @@
 //    reject the triangle; tried on the card, its compares on every pair
 //    cost more than the divisions it skipped. __frcp_rn, equal bit for
 //    bit, was slower too.
+//
+// What E's design does about it (D's, over x-major leaves):
+//  - triangles that can only miss are not tested: a dead leaf (live <= 0)
+//    and, inside a live leaf, a triangle whose e2 is zero (h = d x e2 = 0,
+//    so det = 0 or NaN and |det| > 1e-9 fails for every ray). Warp l
+//    checks triangle l of each of the chunk's 32 leaves, one lane a leaf,
+//    and its ballot is the chunk's mask of live triangles l; the math
+//    walks the leaves with any bit set, in order, and in each the set
+//    lanes. E's signature takes any mask, so no order of the live leaves
+//    is assumed;
+//  - a leaf's 9 fields are read as 9 float4 (each field's 4 lanes), which
+//    feed up to 4 triangles x 2 rays (two rays a thread, 128 threads,
+//    consecutive rays, so that a warp's 64 rays are close in the image);
+//  - after u (and again after v) the warp votes: where no ray of the warp
+//    can still hit the triangle, its q, v and t are not computed (those
+//    rays miss, as classic_mt would say);
+//  - geom and live stream through a ring of four 32-leaf slots (6 KB) by
+//    cp.async, two chunks in flight while one is listed and tested;
+//  - tiles run longest first (common.cuh tile_order) by their live leaves,
+//    counted exactly by a pre-pass over live;
+//  - the tie rule: per leaf the first lane of the minimum, across leaves
+//    only a strictly smaller t. A hit has t > 0, so no t is NaN, and the
+//    two rules together equal one strict-< scan over (leaf, lane) in
+//    order from kFar, which the kernel runs over the tested triangles
+//    (a skipped one would give kFar, which never wins); the packed winner
+//    is rows[leaf] * 4 + lane, or 0 where nothing hits.
 #include "common.cuh"
 
 namespace tbvh {
@@ -70,8 +96,12 @@ constexpr int kChunkD = kThreadsD;        // rows per chunk: one a thread
 constexpr int kStagesD = 4;               // ring slots (6 KB each)
 constexpr int kMinCtasD = 24 * 32 / kThreadsD;  // 24 resident warps a SM
 constexpr int kSegsD = 32;                // extent samples a tile (order)
-constexpr int kRowE = 48;    // floats per leaf row (E)
-constexpr int kChunkE = 64;  // leaves per shared-memory chunk (12 KB)
+constexpr int kVecE = 12;                 // float4 per leaf row (E)
+constexpr int kRaysE = 2;                 // rays per thread (E)
+constexpr int kThreadsE = kTile / kRaysE; // threads per tile (E)
+constexpr int kChunkE = 32;               // leaves per chunk: one ballot
+constexpr int kStagesE = 4;               // ring slots (6 KB each)
+constexpr int kMinCtasE = 24 * 32 / kThreadsE;  // 24 resident warps a SM
 
 __device__ __forceinline__ void load_ray(const float* o_t, const float* d_t,
                                          int tile, int ray, float o[3],
@@ -209,60 +239,197 @@ const void* resolve_v2_kernel_for(int wide) {
               : reinterpret_cast<const void*>(&leaf_resolve_v2_kernel<false>);
 }
 
-__global__ void __launch_bounds__(kTile)
-leaf_resolve_kernel(const float* __restrict__ o_t,
+// Each tile's live leaves (live > 0), for the longest-first order of
+// kernel E: one warp a tile.
+__global__ void __launch_bounds__(128)
+live_count(const int* __restrict__ live, int T, int k,
+           int* __restrict__ counts) {
+  const int tile = blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (tile >= T) return;  // the whole warp
+  const int* l = live + (size_t)tile * k;
+  int n = 0;
+  for (int j0 = 0; j0 < k; j0 += 32) {
+    const int j = j0 + lane;
+    n += __popc(__ballot_sync(0xffffffffu, j < k && l[j] > 0));
+  }
+  if (lane == 0) counts[tile] = n;
+}
+
+// One lane (triangle) of an x-major leaf: component l of each field.
+__device__ __forceinline__ float lane_of(const float4& v, int l) {
+  return l == 0 ? v.x : l == 1 ? v.y : l == 2 ? v.z : v.w;
+}
+
+// cp.async of chunk c's leaves (at most kChunkE: 12 float4 and a live
+// flag each) into slot.
+__device__ __forceinline__ void stage_leaves(float4* slot, int* live_slot,
+                                             const float4* src,
+                                             const int* live, int c, int k) {
+  const int n = min(kChunkE, k - c * kChunkE);
+  const float4* csrc = src + (size_t)c * kChunkE * kVecE;
+  for (int e = threadIdx.x; e < n * kVecE; e += kThreadsE)
+    cp_async16(slot + e, csrc + e);
+  if ((int)threadIdx.x < n)
+    cp_async4(live_slot + threadIdx.x, live + c * kChunkE + threadIdx.x);
+}
+
+// One triangle g = [v0 | e1 | e2] (lane l of leaf `jl / 4`) against this
+// thread's rays: common.cuh classic_mt's arithmetic in its order, in three
+// stages. After u (and again after v) the warp votes, and where no ray of
+// the warp can still hit, the rest is not computed: those rays miss, as
+// classic_mt's hit test would say. (leaf, lane) arrive in order, so a
+// strict < keeps the first minimum.
+__device__ __forceinline__ void test_tri(const float (&o)[kRaysE][3],
+                                         const float (&d)[kRaysE][3],
+                                         const float (&g)[9], int jl,
+                                         float (&best_t)[kRaysE],
+                                         int (&best_j)[kRaysE]) {
+  float hx[kRaysE], hy[kRaysE], hz[kRaysE], inv[kRaysE], u[kRaysE];
+  float sx[kRaysE], sy[kRaysE], sz[kRaysE];
+  bool ok[kRaysE];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < kRaysE; ++q) {
+    hx[q] = __fsub_rn(__fmul_rn(d[q][1], g[8]), __fmul_rn(d[q][2], g[7]));
+    hy[q] = __fsub_rn(__fmul_rn(d[q][2], g[6]), __fmul_rn(d[q][0], g[8]));
+    hz[q] = __fsub_rn(__fmul_rn(d[q][0], g[7]), __fmul_rn(d[q][1], g[6]));
+    const float det = __fadd_rn(
+        __fadd_rn(__fmul_rn(g[3], hx[q]), __fmul_rn(g[4], hy[q])),
+        __fmul_rn(g[5], hz[q]));
+    const bool okd = fabsf(det) > 1e-9f;
+    inv[q] = __fdiv_rn(1.f, okd ? det : 1.f);
+    sx[q] = __fsub_rn(o[q][0], g[0]);
+    sy[q] = __fsub_rn(o[q][1], g[1]);
+    sz[q] = __fsub_rn(o[q][2], g[2]);
+    u[q] = __fmul_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(sx[q], hx[q]),
+                            __fmul_rn(sy[q], hy[q])),
+                  __fmul_rn(sz[q], hz[q])),
+        inv[q]);
+    ok[q] = okd && u[q] >= 0.f;
+    any |= ok[q];
+  }
+  if (!__any_sync(0xffffffffu, any)) return;  // no ray of the warp hits it
+  float qx[kRaysE], qy[kRaysE], qz[kRaysE];
+  any = false;
+#pragma unroll
+  for (int q = 0; q < kRaysE; ++q) {
+    qx[q] = __fsub_rn(__fmul_rn(sy[q], g[5]), __fmul_rn(sz[q], g[4]));
+    qy[q] = __fsub_rn(__fmul_rn(sz[q], g[3]), __fmul_rn(sx[q], g[5]));
+    qz[q] = __fsub_rn(__fmul_rn(sx[q], g[4]), __fmul_rn(sy[q], g[3]));
+    const float v = __fmul_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(d[q][0], qx[q]),
+                            __fmul_rn(d[q][1], qy[q])),
+                  __fmul_rn(d[q][2], qz[q])),
+        inv[q]);
+    ok[q] = ok[q] && v >= 0.f && __fadd_rn(u[q], v) <= 1.f;
+    any |= ok[q];
+  }
+  if (!__any_sync(0xffffffffu, any)) return;
+#pragma unroll
+  for (int q = 0; q < kRaysE; ++q) {
+    const float t = __fmul_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(g[6], qx[q]), __fmul_rn(g[7], qy[q])),
+                  __fmul_rn(g[8], qz[q])),
+        inv[q]);
+    if (ok[q] && t > 0.f && t < best_t[q]) {
+      best_t[q] = t;
+      best_j[q] = jl;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsE, kMinCtasE)
+leaf_resolve_kernel(const int* __restrict__ order,
+                    const float* __restrict__ o_t,
                     const float* __restrict__ d_t,
-                    const float* __restrict__ geom, const int* __restrict__ live,
+                    const float* __restrict__ geom,
+                    const int* __restrict__ live,
                     const int* __restrict__ rows_in, float* __restrict__ t_out,
                     int* __restrict__ pk_out, int k) {
-  __shared__ __align__(16) float g_s[kChunkE * kRowE];
-  __shared__ int live_s[kChunkE];
-  __shared__ int row_s[kChunkE];
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  float o[3], d[3];
-  load_ray(o_t, d_t, tile, tid, o, d);
+  __shared__ float4 g_s[kStagesE][kChunkE * kVecE];
+  __shared__ int live_s[kStagesE][kChunkE];
+  // per triangle lane l of a leaf (one warp each): bit j set where leaf j
+  // of the chunk being listed is live and its triangle l is not zero
+  __shared__ unsigned tri_s[4];
+  const int tile = order[blockIdx.x];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float o[kRaysE][3], d[kRaysE][3], best_t[kRaysE];
+  int best_j[kRaysE];  // leaf * 4 + lane of the best, -1 before a hit
+#pragma unroll
+  for (int q = 0; q < kRaysE; ++q) {
+    load_ray(o_t, d_t, tile, 2 * tid + q, o[q], d[q]);
+    best_t[q] = kFar;
+    best_j[q] = -1;
+  }
 
-  float best_t = kFar;
-  int best_pk = 0;
   const float4* src =
-      reinterpret_cast<const float4*>(geom + (size_t)tile * k * kRowE);
-  float4* dst = reinterpret_cast<float4*>(g_s);
-  for (int c0 = 0; c0 < k; c0 += kChunkE) {
-    const int n = min(kChunkE, k - c0);
-    const float4* csrc = src + (size_t)c0 * (kRowE / 4);
-    for (int e = tid; e < n * (kRowE / 4); e += kTile) dst[e] = csrc[e];
-    if (tid < n) {
-      live_s[tid] = live[(size_t)tile * k + c0 + tid];
-      row_s[tid] = rows_in[(size_t)tile * k + c0 + tid];
+      reinterpret_cast<const float4*>(geom) + (size_t)tile * k * kVecE;
+  const int* tlive = live + (size_t)tile * k;
+  const int n_chunks = (k + kChunkE - 1) / kChunkE;
+  // chunk c is cp.async group c (see leaf_resolve_v2_kernel)
+#pragma unroll
+  for (int c = 0; c < kStagesE - 1; ++c) {
+    if (c < n_chunks) stage_leaves(g_s[c], live_s[c], src, tlive, c, k);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    const int slot = c % kStagesE;
+    cp_async_wait_group<kStagesE - 2>();  // this thread's part of chunk c
+    __syncthreads();  // chunk c visible; every thread is past chunk c - 1
+    const int next = c + kStagesE - 1;    // into chunk c - 1's slot
+    if (next < n_chunks)
+      stage_leaves(g_s[next % kStagesE], live_s[next % kStagesE], src, tlive,
+                   next, k);
+    cp_async_commit();
+    {
+      // warp l checks triangle l of leaf `lane`: live, and e2 not zero (a
+      // zero e2 gives h = 0, so det = 0 or NaN and |det| > 1e-9 fails)
+      const int n = min(kChunkE, k - c * kChunkE);
+      bool ok = false;
+      if (lane < n && live_s[slot][lane] > 0) {
+        const float* e2 =
+            reinterpret_cast<const float*>(g_s[slot] + lane * kVecE) + 24 +
+            warp;
+        ok = e2[0] != 0.f || e2[4] != 0.f || e2[8] != 0.f;
+      }
+      const unsigned b = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0) tri_s[warp] = b;
     }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      if (live_s[j] <= 0) continue;  // a dead leaf never hits
-      const float* g = g_s + j * kRowE;
-      float m = kFar;
-      int lane = 0;
+    __syncthreads();  // the chunk's triangle masks are written
+    unsigned tm[4];
+#pragma unroll
+    for (int l = 0; l < 4; ++l) tm[l] = tri_s[l];
+    const float4* chunk = g_s[slot];
+    for (unsigned m = tm[0] | tm[1] | tm[2] | tm[3]; m; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      const float4* g = chunk + j * kVecE;
+      float4 fv[9];
+#pragma unroll
+      for (int e = 0; e < 9; ++e) fv[e] = g[e];
+      const int jl = (c * kChunkE + j) * 4;
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
-        const float tri[9] = {g[l],      g[4 + l],  g[8 + l],
-                              g[12 + l], g[16 + l], g[20 + l],
-                              g[24 + l], g[28 + l], g[32 + l]};
-        const float t = classic_mt(o, d, tri);
-        if (t < m) {
-          m = t;
-          lane = l;
-        }
-      }
-      if (m < best_t) {
-        best_t = m;
-        best_pk = row_s[j] * 4 + lane;
+        if (!((tm[l] >> j) & 1u)) continue;  // the same in every thread
+        float tri[9];
+#pragma unroll
+        for (int e = 0; e < 9; ++e) tri[e] = lane_of(fv[e], l);
+        test_tri(o, d, tri, jl + l, best_t, best_j);
       }
     }
-    __syncthreads();
   }
-  const size_t ray = (size_t)tile * kTile + tid;
-  t_out[ray] = best_t;
-  pk_out[ray] = best_pk;
+  cp_async_wait_all();  // no copy lands after the CTA is gone
+#pragma unroll
+  for (int q = 0; q < kRaysE; ++q) {
+    const size_t ray = (size_t)tile * kTile + 2 * tid + q;
+    const int bj = best_j[q];
+    t_out[ray] = best_t[q];
+    pk_out[ray] = bj < 0 ? 0
+                         : (int)((unsigned)rows_in[(size_t)tile * k + (bj >> 2)]
+                                     * 4u +
+                                 (unsigned)(bj & 3));
+  }
 }
 
 }  // namespace
@@ -309,12 +476,35 @@ extern "C" int tbvh_leaf_resolve_v2_occupancy(int wide, int* out) {
 
 // o_t, d_t (T, 3, 256) f32, geom (T, k, 48) f32 (16-byte aligned),
 // live (T, k) i32, rows (T, k) i32 -> t (T, 256) f32, packed (T, 256) i32.
+// The tile order lives in 2T ints taken from the stream's memory pool for
+// the launch.
 extern "C" int tbvh_leaf_resolve(const float* o_t, const float* d_t,
                                  const float* geom, const int* live,
                                  const int* rows, float* t, int* pk, int T,
                                  int k, void* stream) {
   if (T <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  tbvh::leaf_resolve_kernel<<<T, tbvh::kTile, 0, (cudaStream_t)stream>>>(
-      o_t, d_t, geom, live, rows, t, pk, k);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  int* counts = nullptr;  // T live counts, then the T-tile order
+  cudaError_t err = cudaMallocAsync(&counts, sizeof(int) * 2 * T, s);
+  if (err != cudaSuccess) return (int)err;
+  int* order = counts + T;
+  const int kpb = (k + tbvh::kOrderThreads - 3) / (tbvh::kOrderThreads - 2);
+  tbvh::live_count<<<(T + 3) / 4, 128, 0, s>>>(live, T, k, counts);
+  tbvh::tile_order<<<1, tbvh::kOrderThreads, 0, s>>>(counts, T, k, kpb,
+                                                     order);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    tbvh::leaf_resolve_kernel<<<T, tbvh::kThreadsE, 0, s>>>(
+        order, o_t, d_t, geom, live, rows, t, pk, k);
+    err = cudaGetLastError();
+  }
+  const cudaError_t freed = cudaFreeAsync(counts, s);
+  return (int)(err != cudaSuccess ? err : freed);
+}
+
+// Kernel E's resources (see common.cuh kernel_occupancy).
+extern "C" int tbvh_leaf_resolve_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::leaf_resolve_kernel),
+      tbvh::kThreadsE, 0, out);
 }

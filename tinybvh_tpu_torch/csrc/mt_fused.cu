@@ -71,7 +71,7 @@ struct RowLayout {
 };
 
 // Signed MT terms of one triangle (48 lanes at g, read as 12 float4)
-// against RPT rays, in lane order (≙ common.cuh signed_terms).
+// against RPT rays, in lane order (≙ packet2.py _signed_terms).
 template <int RPT>
 __device__ __forceinline__ void tri_terms(const float4* g,
                                           const float (&f)[RPT][12],

@@ -483,8 +483,9 @@ def _signed_terms(g, f, base):
     """det, u', v', t' of the triangles at lanes [base, base+48) of rows g
     (n, rows, >=48) against feature rows f (n, 12, 256), sign-flipped so
     det >= 0: -> (ad, us, vs, ts, hit), each (n, rows, 256). Separate
-    multiplies and adds in lane order, as kernels B and C round them
-    (csrc/common.cuh signed_terms)."""
+    multiplies and adds in lane order, as kernel B rounds them
+    (csrc/mt_fused.cu tri_terms; kernel C's reduced dots in
+    csrc/mt_gathered.cu give the same outputs)."""
     acc = []
     for q in range(4):
         a = torch.zeros((g.shape[0], g.shape[1], f.shape[2]),
