@@ -2,7 +2,8 @@
 """Drive the PyTorch / CUDA port's main path once on one GPU.
 
     python3 chip_smoke.py          # every phase
-    python3 chip_smoke.py --resolves   # phases 1-2, 6 and 11, no JSON lines
+    python3 chip_smoke.py --resolves   # phases 1-2, 6, 11 and kernel G on
+                                       # grid16, no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -23,8 +24,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
   5. real size: the 4x4 grid of that scene (1,048,576 triangles), one
      primary trace through intersect_packets2 with the grid16 budgets,
      kernel G against its twin on that trace's cull descriptors (nbpad >
-     128), and the API's default path (primary and shadow, wavefront
-     retrace) gated by the oracles, with its peak device memory;
+     128) with its device time and bound, and the API's default path
+     (primary and shadow, wavefront retrace) gated by the oracles, with
+     its peak device memory;
   6. kernels C and G against their twins: C at the fused=False path's
      shapes (T=1600 tiles, max_leaves=512, K4=2048 rows) with the rows
      its result needs (live rows of the walked blocks) beside the walked
@@ -51,7 +53,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      modes; kernels D (v2 and v3 bodies), E and F against their twins bit
      for bit (F also at 64 leaves, where tiles overflow), each with its
      device time (a CUDA graph), D with its live rows, E with the nonzero
-     triangles of its live leaves, and a line of the registers, shared
+     triangles of its live leaves, F with its pops a tile (most, mean,
+     spread) and the tiles that took its in-kernel sequential walk, and
+     a line of the registers, shared
      memory and resident CTAs per SM of D, E and F; the shadow
      segments of phase 4's light through is_occluded_packets (kernel D,
      2048 leaves, pair cap 512: see V1_SHADOW)
@@ -613,9 +617,8 @@ def phase_grid(tris, dev, W, gpu_line):
 
     def primary():
         return packet2.intersect_packets2(
-            bvh.bvh8, aux, rays, max_leaves=2560, max_blocks=256,
-            retrace="packet", retrace_ml=8192, retrace_blocks=256,
-            tri_blk=128)
+            bvh.bvh8, aux, rays, retrace="packet", retrace_ml=8192,
+            retrace_blocks=256, **GRID_BUDGETS)
 
     rec, restore = capture(packet2, ("cull",))
     reset_launches()
@@ -624,7 +627,7 @@ def phase_grid(tris, dev, W, gpu_line):
     finally:
         restore()
     launches = read_launches(dev, ("cull", "mt_fused"), "the grid trace")
-    blocks = grid_cull_blocks(aux, rec["cull"][0][2])
+    blocks = grid_cull_blocks(aux, rec["cull"][0][2], gpu_line)
     n_ovf = int(ovf.sum())
     if n_ovf:
         raise AssertionError(f"grid: {n_ovf} tiles with residual overflow")
@@ -653,10 +656,12 @@ def phase_grid(tris, dev, W, gpu_line):
           f"{occ_agree:.5f} [{gpu_line}]", flush=True)
 
 
-def grid_cull_blocks(aux, desc):
+def grid_cull_blocks(aux, desc, gpu_line, n_kernel=20, n_plain=3):
     """Kernel G against its twin on grid16's cull descriptors, where
-    nbpad > 128: each thread strides over several block ids, and the
-    n_blocks mask falls past the first 128."""
+    nbpad > 128 (the kernel's 2-D grid spans several chunks of block ids
+    and the n_blocks mask falls past the first 128), timed with its
+    device time and bound as in phase 6. Prints its kernel line and
+    returns a summary for the phase line."""
     import torch
     from tinybvh_tpu_torch.traverse import packet2
 
@@ -664,14 +669,48 @@ def grid_cull_blocks(aux, desc):
     if nbpad <= packet2.LANES:
         raise AssertionError(f"grid: nbpad {nbpad} does not exceed 128")
     g = (desc, aux.blk_lo, aux.blk_hi, aux.n_blocks)
-    kern = (packet2._cull_blocks_cuda if desc.device.type == "cuda"
-            else packet2._cull_blocks_plain)
+    dev = desc.device
+    on_gpu = dev.type == "cuda"
+    kern = packet2._cull_blocks_cuda if on_gpu else packet2._cull_blocks_plain
     m_k = kern(*g)
-    if not torch.equal(m_k, packet2._cull_blocks_plain(*g)):
+    m_p = packet2._cull_blocks_plain(*g)
+    if not torch.equal(m_k, m_p):
         raise AssertionError("cull_blocks: grid16 mask differs from the "
                              "plain twin")
-    return (f"kernel G equal to its twin at G={m_k.shape[0]} nbpad={nbpad} "
-            f"n_blocks={aux.n_blocks} ({int(m_k.sum())} blocks set)")
+    shape = (f"G={m_k.shape[0]} nbpad={nbpad} n_blocks={aux.n_blocks} "
+             f"({int(m_k.sum())} blocks set)")
+    r = dict(
+        max_abs_err=int((m_k - m_p).abs().max()),
+        ms=time_ms(lambda: kern(*g), dev, n_kernel),
+        device_ms=(device_ms(lambda: kern(*g), G_GRAPH_RUNS) if on_gpu
+                   else None),
+        plain_ms=time_ms(lambda: packet2._cull_blocks_plain(*g), dev,
+                         n_plain),
+        shape=f"grid16 {shape}",
+        **bound("cull_blocks", g, (m_k,), desc.shape[0] * aux.n_blocks))
+    kernel_line(5, "cull_blocks", r, gpu_line)
+    return f"kernel G equal to its twin at {shape}"
+
+
+GRID_BUDGETS = dict(max_leaves=2560, max_blocks=256, tri_blk=128)
+# kernel G's device time: a few microseconds a launch, so its CUDA graph
+# holds more launches than the other kernels' to damp the graph's own cost
+G_GRAPH_RUNS = 200
+
+
+def grid_kernel_g(tris, dev, gpu_line, W=640):
+    """Kernel G alone on grid16's cull descriptors (the first cull pass of
+    phase 5's primary trace), for --resolves."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    bvh, rays, _, _, _ = setup_scene(grid_scene(tris, 4, 4), dev, W)
+    rec, restore = capture(packet2, ("cull",))
+    try:
+        packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                   retrace=False, **GRID_BUDGETS)
+    finally:
+        restore()
+    grid_cull_blocks(bvh.packet_aux, rec["cull"][0][2], gpu_line)
 
 
 UNFUSED = dict(max_leaves=512, max_blocks=256)   # K4 = 2048 rows
@@ -726,7 +765,8 @@ def phase_kernels_cg(bvh, rays, cull_args, gpu_line, n_kernel=20,
     out["cull_blocks"] = dict(
         max_abs_err=int((m_k - m_p).abs().max()),
         ms=time_ms(lambda: kern(*g), dev, n_kernel),
-        device_ms=device_ms(lambda: kern(*g), n_kernel) if on_gpu else None,
+        device_ms=(device_ms(lambda: kern(*g), G_GRAPH_RUNS) if on_gpu
+                   else None),
         plain_ms=time_ms(lambda: packet2._cull_blocks_plain(*g), dev,
                          n_plain),
         shape=f"G={m_k.shape[0]} nbpad={m_k.shape[2]} "
@@ -998,6 +1038,15 @@ def kernel_entry(name, kern, plain, args, units, dev, shape, n_kernel=20,
                 shape=shape, **bound(name, args, got, units))
 
 
+def sequential_tiles(fw, args):
+    """Tiles of kernel F's launch on `args` that took its in-kernel
+    sequential walk; "n/a" off the card, or for a tree of the package
+    whose kernel walks every tile that way (before its redesign)."""
+    if args[0].device.type != "cuda" or not hasattr(fw, "sequential_tiles"):
+        return "n/a"
+    return fw.sequential_tiles(*args)
+
+
 def phase_v1(bvh, rays, center, extent, gpu_line):
     """The v1 packet engine at full size: four modes gated by the oracle
     and equal to one another, kernels D, E and F against their twins on
@@ -1094,16 +1143,22 @@ def phase_v1(bvh, rays, center, extent, gpu_line):
         return fw._walk_plain(*args)[:2]
 
     k_f = fw._walk_cuda if on_gpu else plain_f
-    pops = int(fw._walk_plain(*f_args)[2].sum())
+    tile_pops = fw._walk_plain(*f_args)[2].double()
+    pops = int(tile_pops.sum())
     out["frustum_walk"] = kernel_entry(
         "frustum_walk", k_f, plain_f, f_args, pops, dev,
-        f"T={T} M={f_args[0].shape[0]} K={f_args[4]} ({pops} pops)")
+        f"T={T} M={f_args[0].shape[0]} K={f_args[4]} ({pops} pops; a "
+        f"tile: most {int(tile_pops.max())}, mean "
+        f"{float(tile_pops.mean()):.2f}, std {float(tile_pops.std()):.2f}; "
+        f"{sequential_tiles(fw, f_args)} tiles took the kernel's "
+        f"sequential walk)")
     f64 = f_args[:4] + (64,)
     ref64 = plain_f(*f64)
     f_err = equal_twin("frustum_walk at 64 leaves", k_f(*f64), ref64)
     n_ovf64 = int((ref64[1] < 0).sum())
     if on_gpu and n_ovf64 == 0:
         raise AssertionError("no tile overflows 64 leaves")
+    seq64 = sequential_tiles(fw, f64)
 
     # shadow segments from phase 4's light through kernel D, and the rays
     # shuffled through the sorted wrapper
@@ -1146,7 +1201,8 @@ def phase_v1(bvh, rays, center, extent, gpu_line):
           f"{', '.join(rates)}; zero overflowed tiles, prims equal across "
           f"modes (t max diff {err:.3g}); {'; '.join(parts)}; kernels D-v2,"
           f" D-v3 and E agree on t; F at 64 leaves equal to its twin "
-          f"(max_abs_err {f_err}, {n_ovf64} tiles overflow); shadow "
+          f"(max_abs_err {f_err}, {n_ovf64} tiles overflow, {seq64} took "
+          f"the kernel's sequential walk); shadow "
           f"(kernel D): {n_sov_v1} of {T} tiles overflow at {v1_budget}, "
           f"{int(sov.sum())} at {V1_SHADOW}, "
           f"oracle agreement {occ_agree:.5f} on {int(keep.sum())} rays; "
@@ -1772,6 +1828,15 @@ def phase_probes(bvh, gpu_line, n_plain=20):
     return kern, launches
 
 
+# the occupancy entries of phases 6 and 11: name -> (C entry, *args)
+OCC6 = {"C": ("tbvh_mt_gathered_occupancy",),
+        "G": ("tbvh_cull_blocks_occupancy",)}
+OCC11 = {"D-v2": ("tbvh_leaf_resolve_v2_occupancy", 0),
+         "D-v3": ("tbvh_leaf_resolve_v2_occupancy", 1),
+         "E": ("tbvh_leaf_resolve_occupancy",),
+         "F": ("tbvh_frustum_walk_occupancy",)}
+
+
 def print_occupancy(phase, entries, gpu_line):
     """One line of the registers, shared memory and resident CTAs per SM
     of kernels as the package launches them: name -> (C entry, *args)."""
@@ -1831,15 +1896,17 @@ def main(argv=()):
         finally:
             restore()
         phase_kernels_cg(bvh, rays, rec["cull"][0], gpu_line)
+        print_occupancy(6, OCC6, gpu_line)
         phase_v1(bvh, rays, scene[2], extent, gpu_line)
+        print_occupancy(11, OCC11, gpu_line)
+        grid_kernel_g(tris, dev, gpu_line)
         return 0
     kern, cull_args, mt_args = phase_kernels(bvh, rays, gpu_line)
     phase_occupancy(cull_args, mt_args, gpu_line)
     launches, shadow = phase_api(*scene, gpu_line)
     phase_grid(grid_scene(tris, 4, 4), dev, 640, gpu_line)
     kern.update(phase_kernels_cg(bvh, rays, cull_args, gpu_line))
-    print_occupancy(6, {"C": ("tbvh_mt_gathered_occupancy",),
-                        "G": ("tbvh_cull_blocks_occupancy",)}, gpu_line)
+    print_occupancy(6, OCC6, gpu_line)
     launches.update(cull_blocks=phase_cull_stage(
         bvh, cull_args, gpu_line)["cull_blocks"])
     launches.update(mt_gathered=phase_unfused(bvh, rays,
@@ -1847,11 +1914,7 @@ def main(argv=()):
     phase_retrace(bvh, rays, shadow, gpu_line)
     phase_off_packets(bvh, rays, extent, gpu_line)
     v1_kern, v1_launches = phase_v1(bvh, rays, scene[2], extent, gpu_line)
-    print_occupancy(11, {
-        "D-v2": ("tbvh_leaf_resolve_v2_occupancy", 0),
-        "D-v3": ("tbvh_leaf_resolve_v2_occupancy", 1),
-        "E": ("tbvh_leaf_resolve_occupancy",),
-        "F": ("tbvh_frustum_walk_occupancy",)}, gpu_line)
+    print_occupancy(11, OCC11, gpu_line)
     kern.update(v1_kern)
     launches.update(v1_launches)
     tlas_launches = phase_inst512(bvh, tris, gpu_line)

@@ -364,9 +364,9 @@ def test_cull_blocks_kernel_matches_plain(scene, monkeypatch, span_mult):
 
 
 def test_cull_blocks_kernel_strides_past_128_blocks(scene, monkeypatch):
-    """Kernel G over nbpad = 384 block ids (each thread strides over three
-    of them) with n_blocks = 301, inside the last chunk: random boxes
-    around the scene, bit equal to the plain twin."""
+    """Kernel G over nbpad = 384 block ids (three CTAs of 128 ids a group)
+    with n_blocks = 301, inside the last chunk: random boxes around the
+    scene, bit equal to the plain twin."""
     _, bvh = scene
     o, d = _camera_rays()
     calls = _capture(monkeypatch, "cull")
@@ -851,6 +851,272 @@ def test_frustum_walk_kernel_matches_plain(scene, max_leaves):
         assert int((cref == -1).sum()) > cref.shape[0] // 2
     else:
         assert bool((cref > 0).all())
+
+
+# ---- kernels F and G on constructed edge cases -------------------------
+
+WALK_EDGE_CASES = ("stack_overflow", "exact_k", "k_plus_1", "empty_slots",
+                   "reject_all", "oblique_planes", "touching")
+# malformed trees (a node that points back at the root): JAX's walk has no
+# step bound and never ends on them, so only the kernel meets its twin
+WALK_CYCLE_CASES = ("cycle_chain", "cycle_fork")
+_EMPTY = -2147483647        # layouts/mbvh.py EMPTY_SLOT
+_IN = ((0.25, 0.25, 0.0), (0.5, 0.5, 1.0))   # inside the unit window
+
+
+class _Tree:
+    """BVH8 tables built node by node (node 0 is the root): bounds (M, 48),
+    each node's (6, 8) rows lo x, y, z, hi x, y, z with a column a child
+    slot; child (M, 8): a node id, -(leaf id) - 1, or EMPTY_SLOT."""
+
+    def __init__(self):
+        self.bounds, self.child, self.n_leaves = [], [], 0
+
+    def node(self):
+        self.bounds.append(np.zeros((6, 8), np.float32))
+        self.child.append(np.full(8, _EMPTY, np.int32))
+        return len(self.child) - 1
+
+    def put(self, node, slot, kid, box=_IN):
+        self.child[node][slot] = kid
+        self.bounds[node][:3, slot] = box[0]
+        self.bounds[node][3:, slot] = box[1]
+
+    def leaf(self, node, slot, box=_IN):
+        self.put(node, slot, -self.n_leaves - 1, box)
+        self.n_leaves += 1
+
+    def tables(self):
+        return np.stack(self.bounds).reshape(-1, 48), np.stack(self.child)
+
+
+def _windows(wins):
+    """planes (T, 4, 3) and ndoto (T, 1, 4) of axis windows (x0, x1, y0,
+    y1): a box is inside when it meets x0 <= x <= x1 and y0 <= y <= y1
+    (z free); the normals have zero and negative components."""
+    n = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0]], np.float32)
+    nd = np.array([[x0, -x1, y0, -y1] for x0, x1, y0, y1 in wins],
+                  np.float32)
+    return np.broadcast_to(n, (len(wins), 4, 3)).copy(), nd[:, None, :]
+
+
+def _random_tree(rng, depth=3):
+    """Every slot of node j (breadth first) holds (slot + j) % 3: EMPTY_SLOT,
+    a leaf or a node (a leaf at the last level), so that each slot position
+    holds each kind somewhere; every box random inside [0, 1]^3."""
+    t = _Tree()
+    level = [t.node()]
+    for dep in range(depth + 1):
+        nxt = []
+        for j in level:
+            for s in range(8):
+                c = rng.uniform(0.0, 1.0, 3)
+                r = rng.uniform(0.02, 0.2, 3)
+                box = (c - r, c + r)
+                kind = (s + j) % 3
+                if kind == 0:
+                    t.put(j, s, _EMPTY, box)
+                elif kind == 1 or dep == depth:
+                    t.leaf(j, s, box)
+                else:
+                    k = t.node()
+                    t.put(j, s, k, box)
+                    nxt.append(k)
+        level = nxt
+    return t
+
+
+def walk_edge_inputs(case, seed=0):
+    """(bounds (M, 48), child (M, 8), planes (T, 4, 3), ndoto (T, 1, 4))
+    numpy and max_leaves of one case:
+    stack_overflow: a chain of 12 nodes, each pushing 7 side nodes (one
+    leaf each) and the next chain node in its highest slot, so that sp
+    passes 64 at the 9th (tile 0) and the clamp to 63 runs; tile 1 sees
+    only 4 side nodes a level and stays below 64;
+    exact_k / k_plus_1: 20 visible leaves in tile 0 (12 in tile 1) at
+    max_leaves 20 and 19;
+    empty_slots: EMPTY_SLOT children mixed with leaves and nodes in every
+    slot (_random_tree), three windows;
+    reject_all: the same tree, windows beside the scene on each side;
+    oblique_planes: the same tree, planes of random normals with zero and
+    negative components, each a random margin behind the scene's centre;
+    touching: boxes whose face lies on a plane (dist == 0, inside) beside
+    boxes one ulp outside it;
+    cycle_chain / cycle_fork: node 1 points back at the root once / twice
+    (malformed: only the step bound or the stack overflow ends the walk)."""
+    rng = np.random.default_rng(seed)
+    K = 128
+    if case == "stack_overflow":
+        t = _Tree()
+        chain = [t.node() for _ in range(12)]
+        for i, c in enumerate(chain):
+            for s in range(7):
+                side = t.node()
+                box = ((s / 8, 0.25, 0.0), (s / 8 + 0.1, 0.5, 1.0))
+                t.put(c, s, side, box)
+                t.leaf(side, 0, box)
+            if i + 1 < len(chain):
+                t.put(c, 7, chain[i + 1], ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)))
+            else:
+                t.leaf(c, 7)
+        planes, ndoto = _windows([(0, 1, 0, 1), (0, 0.45, 0, 1)])
+    elif case in ("exact_k", "k_plus_1"):
+        t = _Tree()
+        root, a, b, c = (t.node() for _ in range(4))
+        far = ((0.8, 0.8, 0.0), (0.9, 0.9, 1.0))     # outside window 1
+        t.leaf(root, 0)
+        t.put(root, 1, a, far)
+        t.leaf(root, 3)
+        t.put(root, 4, b)
+        t.leaf(root, 5)
+        for s in range(8):
+            t.leaf(a, s, far)
+        for s in range(4):
+            t.leaf(b, s)
+        t.put(b, 5, c)
+        for s in (0, 2, 3, 6, 7):
+            t.leaf(c, s)
+        planes, ndoto = _windows([(0, 1, 0, 1), (0, 0.6, 0, 0.6)])
+        K = 20 if case == "exact_k" else 19
+    elif case in ("empty_slots", "reject_all", "oblique_planes"):
+        t = _random_tree(rng)
+        if case == "empty_slots":
+            planes, ndoto = _windows([(0, 1, 0, 1), (0.4, 1, 0, 1),
+                                      (0.2, 0.7, 0.3, 1)])
+        elif case == "reject_all":
+            planes, ndoto = _windows([(1.5, 2, 0, 1), (-2, -1.5, 0, 1),
+                                      (0, 1, 1.5, 2), (0, 1, -2, -1.5)])
+        else:
+            normals = np.array([[0.6, -0.8, 0.0], [-0.6, 0.0, 0.8],
+                                [0.0, 0.8, -0.6], [-0.8, -0.6, 0.0],
+                                [0.0, 0.0, -1.0], [0.8, 0.0, 0.6]],
+                               np.float32)
+            T = 4
+            planes = normals[rng.integers(0, len(normals), (T, 4))]
+            # each plane a random margin behind the scene's centre
+            ndoto = ((planes * 0.5).sum(-1) - rng.uniform(0.05, 0.3, (T, 4))
+                     ).astype(np.float32)[:, None, :]
+    elif case == "touching":
+        t = _Tree()
+        root, inner = t.node(), t.node()
+        below = np.nextafter(np.float32(0.5), np.float32(0))
+        above = np.nextafter(np.float32(0.75), np.float32(1))
+        boxes = [((0.25, 0.25, 0), (0.5, 0.5, 1)),       # hi.x on x = 0.5
+                 ((0.25, 0.25, 0), (below, 0.5, 1)),      # one ulp out
+                 ((0.75, 0.25, 0), (0.9, 0.5, 1)),        # lo.x on x = 0.75
+                 ((above, 0.25, 0), (0.9, 0.5, 1)),
+                 ((0.6, 0.0, 0), (0.7, 0.5, 1)),          # hi.y on y = 0.5
+                 ((0.6, 0.0, 0), (0.7, below, 1)),
+                 ((0.6, 0.75, 0), (0.7, 0.9, 1))]         # lo.y on y = 0.75
+        for s, box in enumerate(boxes):
+            t.leaf(root, s, box)
+        t.put(root, 7, inner, ((0.75, 0.75, 0), (0.9, 0.9, 1)))  # a corner
+        for s in range(3):
+            t.leaf(inner, s, ((0.75, 0.75, 0), (0.8, 0.8, 1)))
+        t.leaf(inner, 3, ((above, 0.75, 0), (0.8, 0.8, 1)))
+        planes, ndoto = _windows([(0.5, 0.75, 0.5, 0.75),
+                                  (0.5, 0.75, 0.0, 1.0)])
+    elif case in ("cycle_chain", "cycle_fork"):
+        t = _Tree()
+        root, a = t.node(), t.node()
+        t.leaf(root, 0)
+        t.put(root, 1, a)
+        t.leaf(a, 0)
+        t.put(a, 3, root)
+        if case == "cycle_fork":
+            t.put(a, 5, root)
+        planes, ndoto = _windows([(0, 1, 0, 1), (0, 0.3, 0, 1)])
+        K = 64
+    else:
+        raise ValueError(case)
+    bounds, child = t.tables()
+    return (bounds, child, planes.astype(np.float32),
+            np.ascontiguousarray(ndoto, np.float32)), K
+
+
+# (nbpad, n_blocks): the mask at the first and last ids, at 128 and past it
+CULL_BLOCKS_EDGE_CASES = ((128, 1), (128, 127), (128, 128), (768, 1),
+                          (768, 127), (768, 128), (768, 129), (768, 767))
+# and grids of 3 and 5 chunks of 128 block ids (the kernel's CTA)
+CULL_BLOCKS_CUDA_CASES = CULL_BLOCKS_EDGE_CASES + ((384, 300), (640, 513))
+
+
+def cull_blocks_edge_inputs(nbpad, n_blocks, seed=0):
+    """(desc (24, 128), blk_lo, blk_hi (3, nbpad)) numpy f32: 3 groups of 8
+    tiles, each tile the 4 planes of an axis window (desc lanes posn,
+    negn, thresholds; the others random, which the tier does not read),
+    random block boxes in [0, 4]^3, and in every group's tile 0 a window
+    [1, 2] x [1, 2] that the boxes of ids 0, n_blocks - 1 and n_blocks
+    (past the mask) touch exactly on a face (dist == 0, inside)."""
+    rng = np.random.default_rng(seed)
+    G = 3
+    wins = []
+    for _ in range(G):
+        wins.append((1.0, 2.0, 1.0, 2.0))
+        for _ in range(7):
+            x0, y0 = rng.uniform(0.0, 3.5, 2)
+            w, h = rng.uniform(0.05, 0.5, 2)
+            wins.append((x0, x0 + w, y0, y0 + h))
+    planes, ndoto = _windows(wins)
+    desc = rng.uniform(-1.0, 1.0, (G * 8, 128)).astype(np.float32)
+    desc[:, 0:12] = np.maximum(planes, 0).reshape(-1, 12)
+    desc[:, 12:24] = np.minimum(planes, 0).reshape(-1, 12)
+    desc[:, 24:28] = ndoto[:, 0]
+    c = rng.uniform(0.0, 4.0, (nbpad, 3))
+    r = rng.uniform(0.01, 0.1, (nbpad, 3))
+    lo, hi = (c - r).astype(np.float32), (c + r).astype(np.float32)
+    for i, face in ((0, "hi.x"), (n_blocks - 1, "lo.x"), (n_blocks, "hi.y")):
+        if i >= nbpad:
+            continue
+        lo[i], hi[i] = (0.5, 1.2, 0.0), (1.0, 1.5, 1.0)
+        if face == "lo.x":
+            lo[i, 0], hi[i, 0] = 2.0, 2.5
+        elif face == "hi.y":
+            lo[i], hi[i] = (1.2, 0.5, 0.0), (1.5, 1.0, 1.0)
+    return desc, np.ascontiguousarray(lo.T), np.ascontiguousarray(hi.T)
+
+
+def _cuda(*xs):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in xs)
+
+
+@pytest.mark.parametrize("case", WALK_EDGE_CASES + WALK_CYCLE_CASES)
+def test_frustum_walk_kernel_edge_cases(case):
+    """Kernel F against its twin on the constructed trees, every list and
+    count equal; the tiles whose stack overflows (and the malformed
+    trees, past the kernel's record capacity or level bound) take the
+    kernel's sequential walk and only those."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    (bounds, child, planes, ndoto), K = walk_edge_inputs(case)
+    args = _cuda(bounds, child, planes, ndoto) + (K,)
+    leaves, counts = fw._walk_cuda(*args)
+    lref, cref, _ = fw._walk_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, cref) and torch.equal(leaves, lref)
+    seq = fw.sequential_tiles(*args)
+    want = {"stack_overflow": 1, "cycle_chain": 2, "cycle_fork": 2}
+    assert seq == want.get(case, 0)
+    if case in want:
+        assert int(cref[0]) == -1
+
+
+@pytest.mark.parametrize("nbpad,n_blocks", CULL_BLOCKS_CUDA_CASES)
+def test_cull_blocks_kernel_edge_cases(nbpad, n_blocks):
+    """Kernel G against its twin on constructed descriptors and boxes: the
+    n_blocks mask at its edges and past 128 ids, 2-D grids of 1 to 6
+    chunks of 128 ids, n_blocks inside the last chunk or the middle one,
+    and boxes on a plane (inside) at ids 0 and n_blocks - 1, and at
+    n_blocks (masked)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    desc, lo, hi = _cuda(*cull_blocks_edge_inputs(nbpad, n_blocks))
+    got = packet2._cull_blocks_cuda(desc, lo, hi, n_blocks)
+    ref = packet2._cull_blocks_plain(desc, lo, hi, n_blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool(got[:, 0, 0].all()) and bool(got[:, 0, n_blocks - 1].all())
+    assert not bool(got[:, 0, n_blocks:].any())
 
 
 def test_v1_engine_on_cuda_matches_oracle(scene):

@@ -113,6 +113,7 @@ _SIGNATURES = {
     "tbvh_leaf_resolve_occupancy": [_P],
     # frustum_walk.cu
     "tbvh_frustum_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tbvh_frustum_walk_seq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "tbvh_frustum_walk_occupancy": [_P],
     # gather_probe.cu
     "tbvh_gather_row": [_P, _P, _P, _I, _I, _P],

@@ -3,11 +3,15 @@ per tile against its frustum planes (≙
 tinybvh_tpu/traverse/pallas_frustum.py).
 
 Kernel F, `collect_tile_leaves_kernel` (csrc/frustum_walk.cu; replaces
-`_kernel`, wrapped there by `collect_tile_leaves_pallas`): per tile a
-64-entry stack walk that tests each popped node's 8 child boxes against
-the tile's 4 planes and lists the surviving leaves in visit order. The
-plain PyTorch twin `_walk_plain` steps every tile's walk in lockstep, one
-pop per tile per step, and gives the same lists, overflow included. A
+`_kernel`, wrapped there by `collect_tile_leaves_pallas`): per tile the
+leaf list of a 64-entry stack walk that tests each popped node's 8 child
+boxes against the tile's 4 planes and lists the surviving leaves in visit
+order. The kernel expands each tile's visible tree breadth first and
+places every leaf at its position in that order; a tile whose stack
+overflows walks pop by pop inside the kernel (`sequential_tiles` counts
+them). The plain PyTorch twin `_walk_plain` steps every tile's walk in
+lockstep, one pop per tile per step, and gives the same lists, overflow
+included. A
 wrapper runs the twin only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. `LAUNCHES` counts kernel launches (not
 calls a CUDA graph captures)."""
@@ -95,9 +99,10 @@ def _walk_plain(bounds, child, planes, ndoto, max_leaves: int):
     return lst[:, :K].contiguous(), counts, pops
 
 
-def _walk_cuda(bounds, child, planes, ndoto, max_leaves: int):
+def _walk_cuda(bounds, child, planes, ndoto, max_leaves: int, seq=None):
     """Kernel F launch (csrc/frustum_walk.cu); the plain twin's outputs
-    without its pop count."""
+    without its pop count. With seq (a device int32 (1,)), the kernel adds
+    to it the tiles that took its sequential walk."""
     M = bounds.shape[0]
     T = planes.shape[0]
     _check("frustum_walk bounds", bounds, torch.float32, (M, 48))
@@ -111,13 +116,27 @@ def _walk_cuda(bounds, child, planes, ndoto, max_leaves: int):
         return leaves, counts
     lib = _build.kernels()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
-    err = lib.tbvh_frustum_walk(bounds.data_ptr(), child.data_ptr(),
-                                planes.data_ptr(), ndoto.data_ptr(),
-                                leaves.data_ptr(), counts.data_ptr(), T,
-                                max_leaves, _max_steps(M), stream)
+    args = (bounds.data_ptr(), child.data_ptr(), planes.data_ptr(),
+            ndoto.data_ptr(), leaves.data_ptr(), counts.data_ptr(), T,
+            max_leaves, _max_steps(M))
+    if seq is None:
+        err = lib.tbvh_frustum_walk(*args, stream)
+    else:
+        err = lib.tbvh_frustum_walk_seq(*args, seq.data_ptr(), stream)
     _build.check(err, "tbvh_frustum_walk")
     _count(LAUNCHES, "frustum_walk")
     return leaves, counts
+
+
+def sequential_tiles(bounds, child, planes, ndoto, max_leaves: int) -> int:
+    """Tiles of one kernel F launch on these CUDA tensors that took the
+    kernel's sequential walk (stack overflow, or a visible tree past the
+    kernel's record capacity)."""
+    if not _on_cuda("sequential_tiles", bounds, child, planes, ndoto):
+        raise ValueError("sequential_tiles: the kernel runs on CUDA tensors")
+    seq = torch.zeros((1,), dtype=torch.int32, device=planes.device)
+    _walk_cuda(bounds, child, planes, ndoto, max_leaves, seq)
+    return int(seq.item())
 
 
 def collect_tile_leaves_kernel(bounds, child, planes, ndoto,
