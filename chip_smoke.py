@@ -4,6 +4,8 @@
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --resolves   # phases 1-2, 6, 11 and kernel G on
                                        # grid16, no JSON lines
+    python3 chip_smoke.py --render     # phases 1-2, 15 and 15b, no JSON
+                                       # lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -78,7 +80,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      rays), the two-level wavefront at cap 6 (timed; gated only if it
      does not overflow) and shadow segments from a light above the grid
      through is_occluded_tlas_packets2, each against the lockstep oracle
-     (the two engines with a profiler breakdown);
+     (the two engines with a profiler breakdown); A and B against their
+     twins on the per-instance engine's closest-hit and shadow passes
+     with the most live tiles;
  13. refit per frame (bench.py:304-318): refit_bvh8 + build_packet_aux
      on the card for a deformed random64k, timed; the moved camera rays
      through intersect_packets2 on the refit tables and, after BVH.refit,
@@ -100,15 +104,43 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and the split of the loop by subtraction. Every kernel against its
      twin:
      torch.equal, bf16 within its tolerance (probes/mt_ablation.py check);
+ 15. render64k: render() of random64k with a floor quad below it and an
+     emissive quad above it (RENDER: 640x640 pixels, 2 samples, 3
+     bounces), every extension and shadow pass through the packet2 engine
+     (aux=, kernels A and B) at the h100 row's budgets and retrace cap;
+     the frame's overflow flag, finite and lit radiance, bounce 0's hits
+     against the brute-force oracle on 2048 rays, and the same frame
+     through the wavefront engine with the same draws (0.999 of the
+     pixels within rtol 1e-3 / atol 1e-4, means within 1e-3); A and B
+     against their twins on a bounce-1 extension pass (sorted incoherent
+     rays); frame time, traversals, rays and launches a frame, a
+     profiler breakdown (device time, idle share, A+B, the wavefront
+     retraces' device time, recorded in the frame and replayed under the
+     profiler) and peak device memory;
+ 15b. scene16: a Scene of 16 instances of one rigid random64k mesh with
+     a morph target on bench.py's 4x4 grid (1,048,576 triangles) and an
+     emissive quad, animated (a LINEAR translation of the grid, a LINEAR
+     morph weight); 3 frames of update(t) (refit on the card, TLAS),
+     tlas_packet() and trace_paths_tlas(tpacket=) at 512x512, 1 sample, 2
+     bounces, each gated by Scene.intersect against brute force over the
+     frame's world triangles; the last frame against the wavefront route
+     with the same draws (0.98 of the rays within rtol 2e-2 / atol 2e-3,
+     means within 2e-2) at the h100 row's cap; update, tlas_packet,
+     trace and frame times, launches a frame, device time, idle share
+     and the retraces' device time; A and B against their twins on the
+     last trace's per-instance extension and shadow passes with the most
+     live tiles (refit BLAS tables);
 then a JSON line of the kernels (launches counted on each kernel's
 own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
 11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
 drives on that trace's inputs, since no path of the package runs them;
 A and B also carry tlas_launches, their launches in one phase 12
-bucketed call; H and I theirs in phase 14's drivers, with device_ms,
-graph_runs and, for I, whose entry is the full variant at 64 clustered
-keys a tile, a `variants` dict), each with its time, its plain twin's, and its bound (BOUND_RATES),
-and as the last line {"ok": true, "device": {...}}.
+bucketed call, render_launches, theirs in one phase 15 frame, and
+scene_launches, theirs in one phase 15b frame's trace; H and I theirs
+in phase 14's drivers, with device_ms, graph_runs and, for I, whose
+entry is the full variant at 64 clustered keys a tile, a `variants`
+dict), each with its time, its plain twin's, and its bound
+(BOUND_RATES), and as the last line {"ok": true, "device": {...}}.
 
 Precision: TF32 stays off (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 False); the ray path uses no tensor
@@ -252,9 +284,11 @@ def device_ms(fn, n):
     return graph_ms(fn, n)
 
 
-def wall_s(fn, dev, reps=3):
-    """Median wall seconds of fn() ending in a device synchronize."""
-    fn()
+def wall_s(fn, dev, reps=3, warmed=False):
+    """Median wall seconds of fn() ending in a device synchronize, after
+    a warm-up call (none where the caller has just run fn: warmed)."""
+    if not warmed:
+        fn()
     sync(dev)
     ts = []
     for _ in range(reps):
@@ -1305,46 +1339,76 @@ def tlas_gates(h, ref, what):
             f"{prim_agree:.5f} checksum {ratio:.6f}")
 
 
-def breakdown(fn, dev, wall_ms):
-    """Where one call of fn() spends its time, from one call under
-    torch.profiler (CPU and CUDA activities): kernels A and B's device
-    time (csrc/cull.cu cull_kernel, csrc/mt_fused.cu tile_order and
-    mt_fused_kernel), all other device time, the
-    device's busy share of wall_ms (an unprofiled call's median wall
-    time) and the four torch kernels with the most device time. "not
-    measured" where the profiler saw no device time (off the card, or
+def profile_split(fn, dev):
+    """One call of fn() under torch.profiler with the CUDA activity alone
+    (the CPU side's events cost ~20 s around the 68 packet passes of a
+    scene16 trace): dict(total=all device ms, ab=kernels A and B's device
+    ms (csrc/cull.cu cull_kernel, csrc/mt_fused.cu tile_order and
+    mt_fused_kernel), top=the four other kernels with the most device
+    time); None where the profiler saw no device time (off the card, or
     records dropped)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if dev.type != "cuda":
-        return "breakdown not measured (no card)"
+        return None
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(dev)
-    # device-side events only (kernels, copies): a CPU op's self device
-    # time repeats the kernels it launched
-    evs = [e for e in prof.key_averages()
-           if str(getattr(e, "device_type", "")).endswith("CUDA")
-           and getattr(e, "self_device_time_total", 0) > 0]
-    if not evs:
-        return "breakdown not measured (the profiler saw no device time)"
-    ms = {e.key: e.self_device_time_total / 1e3 for e in evs}
+    ms = {e.key: e.self_device_time_total / 1e3
+          for e in prof.key_averages()
+          if str(getattr(e, "device_type", "")).endswith("CUDA")
+          and getattr(e, "self_device_time_total", 0) > 0}
+    if not ms:
+        return None
 
     def is_ab(name):
         return any(k in name for k in ("cull_kernel", "mt_fused_kernel",
                                        "tile_order"))
 
-    ours = sum(v for k, v in ms.items() if is_ab(k))
-    total = sum(ms.values())
-    top = sorted(((v, k) for k, v in ms.items() if not is_ab(k)),
-                 reverse=True)[:4]
+    return dict(
+        total=sum(ms.values()),
+        ab=sum(v for k, v in ms.items() if is_ab(k)),
+        top=sorted(((v, k) for k, v in ms.items() if not is_ab(k)),
+                   reverse=True)[:4])
+
+
+def breakdown(fn, dev, wall_ms, retrace=False):
+    """Where one call of fn() spends its time (profile_split): device ms,
+    the device's busy and idle share of wall_ms (an unprofiled call's
+    median wall time), kernels A+B, the other kernels and the four with
+    the most device time; "not measured" where the profiler saw no
+    device time. With retrace, the packet paths' wavefront retraces
+    (traverse/wavefront.py's intersect_wavefront, which packet2 imports
+    at each retrace, and tlas/packet.py's intersect_tlas_wavefront) are
+    recorded during the call and replayed on the same inputs under the
+    profiler: their device ms, a part of the other kernels'."""
+    from tinybvh_tpu_torch.tlas import packet as tpk
+    from tinybvh_tpu_torch.traverse import wavefront
+
+    targets = ((wavefront, "intersect_wavefront"),
+               (tpk, "intersect_tlas_wavefront")) if retrace else ()
+    with Calls(*targets) as rec:
+        sp = profile_split(fn, dev)
+    if dev.type != "cuda":
+        return "breakdown not measured (no card)"
+    if sp is None:
+        return "breakdown not measured (the profiler saw no device time)"
+    total, ours = sp["total"], sp["ab"]
+    extra = ""
+    if retrace:
+        rt = profile_split(lambda: [real(*args, **kw)
+                                    for real, args, kw, _ in rec.calls], dev)
+        extra = (f", of which the retrace ({len(rec.calls)} calls, "
+                 + ("replayed) not measured" if rt is None else
+                    f"replayed) {rt['total']:.2f} ms"))
+    del rec
     return (f"device {total:.2f} ms of {wall_ms:.2f} ms wall (busy "
             f"{total / wall_ms:.3f}, idle {1 - total / wall_ms:.3f}): "
             f"kernels A+B {ours:.2f} ms, other kernels {total - ours:.2f} "
-            "ms, most: " + ", ".join(f"{k[:48]} {v:.2f}" for v, k in top))
+            f"ms{extra}, most: " + ", ".join(
+                f"{k[:48]} {v:.2f}" for v, k in sp["top"]))
 
 
 def live_tiles(b):
@@ -1352,16 +1416,60 @@ def live_tiles(b):
     return int((b[1] > 0).sum())
 
 
-def round_kernels(rec, k_first, gpu_line, what, n_kernel=20):
+def pair_kernels(a, b, n_kernel=20):
     """Kernels A and B against their twins (torch.equal on every output)
-    on two captured calls of a bucketed trace: the first-pass round with
-    the most live tiles (k_cap = k_first) and the escalation pass with
-    the most; each timed by CUDA events and as device time (a CUDA graph
-    of the calls), with its bound. Prints one line per call."""
+    on one captured cull call `a` and its resolve call `b`, each timed by
+    CUDA events and as device time (a CUDA graph of the calls), with its
+    bound. Returns {name: result}."""
     from tinybvh_tpu_torch.traverse import packet2
 
-    dev = rec["cull"][0][2].device
+    if a[6] != b[7]:
+        raise AssertionError("cull and resolve calls unpaired")
+    dev = a[2].device
     on_gpu = dev.type == "cuda"
+    kern_a = packet2._cull_cuda if on_gpu else packet2._cull_plain
+    ref_a = packet2._cull_plain(*a)
+    got_a = kern_a(*a)
+    err_a = equal_twin("cull", got_a, ref_a)
+
+    def plain_b(*args):
+        return packet2._mt_fused_plain(*args)[:5]
+
+    kern_b = packet2._mt_fused_cuda if on_gpu else plain_b
+    *ref_b, n_sb = packet2._mt_fused_plain(*b)
+    got_b = kern_b(*b)
+    err_b = equal_twin("mt_fused", got_b, ref_b)
+    r = {}
+    for name, kern, plain, args, got, units, err in (
+            ("cull", kern_a, packet2._cull_plain, a, got_a,
+             int(a[0].sum()) * packet2.LANES * packet2.TB, err_a),
+            ("mt_fused", kern_b, plain_b, b, got_b, fused_tests(b, n_sb),
+             err_b)):
+        r[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: kern(*args), dev, n_kernel),
+            device_ms=(device_ms(lambda: kern(*args), n_kernel)
+                       if on_gpu else float("nan")),
+            plain_ms=time_ms(lambda: plain(*args), dev, 1),
+            **bound(name, args, got, units))
+    return r
+
+
+def pair_text(a, b, r):
+    shape = (f"T={b[0].shape[0]} ({live_tiles(b)} live) k_cap={b[7]} "
+             f"max_blocks={a[1].shape[1]} tri_blk={b[8]}")
+    return f"{shape}; " + "; ".join(
+        f"{k} equal to its twin (max_abs_err {v['max_abs_err']}), "
+        f"kernel {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, plain "
+        f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms "
+        f"({v['bound_by']})" for k, v in r.items())
+
+
+def round_kernels(rec, k_first, gpu_line, what, n_kernel=20):
+    """Kernels A and B against their twins (pair_kernels) on two captured
+    calls of a bucketed trace: the first-pass round with the most live
+    tiles (k_cap = k_first) and the escalation pass with the most. Prints
+    one line per call."""
     first = [i for i, b in enumerate(rec["mt_fused"]) if b[7] == k_first]
     esc = [i for i, b in enumerate(rec["mt_fused"]) if b[7] > k_first]
     if not first or not esc:
@@ -1370,41 +1478,31 @@ def round_kernels(rec, k_first, gpu_line, what, n_kernel=20):
     for label, calls in (("round", first), ("escalation", esc)):
         i = max(calls, key=lambda j: live_tiles(rec["mt_fused"][j]))
         a, b = rec["cull"][i], rec["mt_fused"][i]
-        if a[6] != b[7]:
-            raise AssertionError(f"{what}: cull and resolve calls unpaired")
-        kern_a = packet2._cull_cuda if on_gpu else packet2._cull_plain
-        ref_a = packet2._cull_plain(*a)
-        got_a = kern_a(*a)
-        err_a = equal_twin(f"cull ({label})", got_a, ref_a)
+        r = pair_kernels(a, b, n_kernel)
+        print(f"{what} kernels, {label} pass: {pair_text(a, b, r)} "
+              f"[{gpu_line}]", flush=True)
 
-        def plain_b(*args):
-            return packet2._mt_fused_plain(*args)[:5]
 
-        kern_b = packet2._mt_fused_cuda if on_gpu else plain_b
-        *ref_b, n_sb = packet2._mt_fused_plain(*b)
-        got_b = kern_b(*b)
-        err_b = equal_twin(f"mt_fused ({label})", got_b, ref_b)
-        r = {}
-        for name, kern, plain, args, got, units, err in (
-                ("cull", kern_a, packet2._cull_plain, a, got_a,
-                 int(a[0].sum()) * packet2.LANES * packet2.TB, err_a),
-                ("mt_fused", kern_b, plain_b, b, got_b,
-                 fused_tests(b, n_sb), err_b)):
-            r[name] = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: kern(*args), dev, n_kernel),
-                device_ms=(device_ms(lambda: kern(*args), n_kernel)
-                           if on_gpu else float("nan")),
-                plain_ms=time_ms(lambda: plain(*args), dev, 1),
-                **bound(name, args, got, units))
-        shape = (f"T={b[0].shape[0]} ({live_tiles(b)} live) k_cap={b[7]} "
-                 f"max_blocks={a[1].shape[1]} tri_blk={b[8]}")
-        print(f"{what} kernels, {label} pass: {shape}; " + "; ".join(
-            f"{k} equal to its twin (max_abs_err {v['max_abs_err']}), "
-            f"kernel {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, plain "
-            f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.4f} ms "
-            f"({v['bound_by']})" for k, v in r.items())
-            + f" [{gpu_line}]", flush=True)
+def pass_kernels(fn, gpu_line, what, n_kernel=20):
+    """Kernels A and B against their twins (pair_kernels) on two of the
+    packet passes one fn() call makes: the closest-hit pass and the
+    any-hit pass with the most live tiles. Prints one line per pass."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    rec, restore = capture(packet2, ("cull", "mt_fused"))
+    try:
+        fn()
+    finally:
+        restore()
+    for label, any_hit in (("closest-hit", False), ("any-hit", True)):
+        calls = [i for i, b in enumerate(rec["mt_fused"]) if b[11] == any_hit]
+        if not calls:
+            raise AssertionError(f"{what}: no {label} pass captured")
+        i = max(calls, key=lambda j: live_tiles(rec["mt_fused"][j]))
+        a, b = rec["cull"][i], rec["mt_fused"][i]
+        r = pair_kernels(a, b, n_kernel)
+        print(f"{what} kernels, {label} pass {i} of {len(rec['mt_fused'])}: "
+              f"{pair_text(a, b, r)} [{gpu_line}]", flush=True)
 
 
 def phase_inst512(bvh, tris, gpu_line):
@@ -1478,7 +1576,9 @@ def phase_inst8(bvh, tris, gpu_line):
     engine, the per-instance engine and TLAS.intersect (the API: the
     two-level wavefront at caps 4 and 12, then lockstep), the two-level
     wavefront at cap 6 (bench.py:675-679) and shadow segments through
-    is_occluded_tlas_packets2, each gated by the lockstep oracle."""
+    is_occluded_tlas_packets2, each gated by the lockstep oracle;
+    kernels A and B against their twins on the per-instance engine's
+    closest-hit and shadow passes (pass_kernels)."""
     import torch
     from tinybvh_tpu_torch import TLAS, make_rays
     from tinybvh_tpu_torch.tlas import instance
@@ -1589,6 +1689,9 @@ def phase_inst8(bvh, tris, gpu_line):
     parts.append(f"shadow {R / wall_s(occluded, dev) / 1e6:.3f} MRays/s "
                  f"(occluded {float(occ.float().mean()):.4f}), lockstep "
                  f"segment agreement {occ_agree:.5f}")
+    # kernels A and B on the per-instance engine's passes
+    pass_kernels(lambda: (per_instance(), occluded()), gpu_line,
+                 "phase 12b inst8 per-instance and shadow")
     print(f"phase 12b inst8: {len(tp.blas_of)} instances, {R} rays, TLAS "
           f"build {build_s:.3f} s, per-tile candidate max {cand_max} -> "
           f"rounds {rounds}; lockstep oracle {steps} steps; "
@@ -1671,6 +1774,384 @@ def phase_refit(bvh, tris, rays, gpu_line):
           f"{api_rate:.3f} MRays/s (peak device memory {mem:.3f} GiB), "
           f"oracle prim-agree {a_agree:.5f} checksum {a_ratio:.6f}; "
           f"{time.perf_counter() - start:.1f} s [{gpu_line}]", flush=True)
+
+
+# phase 15: random64k with a floor and an emissive quad, 640x640 pixels,
+# 2 samples a pixel, 3 bounces, through render(aux=) (packet routing)
+RENDER = dict(W=640, spp=2, bounces=3, seed=0, emission=8.0)
+# phase 15b: scene16, the 4x4 grid of random64k as 16 instances of one
+# rigid, morphing mesh in a Scene, 512x512 camera rays, 1 sample, 2
+# bounces a frame, 3 frames
+SCENE16 = dict(W=512, bounces=2, frames=(0.0, 0.4, 0.8), emission=8.0)
+
+
+def lit_box(tris):
+    """random64k's box with a floor quad below it and an emissive quad
+    above it: (all triangles, emission (N, 3))."""
+    v = tris.reshape(-1, 3)
+    lo, hi = v.min(0), v.max(0)
+    c, ext = (lo + hi) / 2, hi - lo
+
+    def quad(y, half, flip):
+        a = [c[0] - half[0], y, c[2] - half[2]]
+        b = [c[0] + half[0], y, c[2] - half[2]]
+        cc = [c[0] + half[0], y, c[2] + half[2]]
+        d = [c[0] - half[0], y, c[2] + half[2]]
+        q = np.array([[a, b, cc], [a, cc, d]], np.float32)
+        return q[:, ::-1] if flip else q
+
+    floor = quad(lo[1] - 0.05 * ext[1], ext, False)
+    light = quad(hi[1] + 0.3 * ext[1], 0.25 * ext, True)
+    all_tris = np.concatenate([tris, floor, light]).astype(np.float32)
+    emission = np.zeros((all_tris.shape[0], 3), np.float32)
+    emission[-2:] = RENDER["emission"]
+    return all_tris, emission
+
+
+class Calls:
+    """A with-block that patches each (module, name) of `targets` to
+    record its calls, at most `keep` of them (all with keep=None), as
+    (the real function, args, kwargs, result) in .calls, and puts the
+    functions back on leaving."""
+
+    def __init__(self, *targets, keep=None):
+        self.targets, self.keep = targets, keep
+        self.calls, self.real = [], []
+
+    def __enter__(self):
+        for module, name in self.targets:
+            real = getattr(module, name)
+
+            def f(*args, _real=real, **kw):
+                out = _real(*args, **kw)
+                if self.keep is None or len(self.calls) < self.keep:
+                    self.calls.append((_real, args, kw, out))
+                return out
+
+            setattr(module, name, f)
+            self.real.append((module, name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in self.real:
+            setattr(module, name, real)
+        self.real = []
+
+
+def image_gate(got, ref, rtol, atol, frac, mean_rtol, what):
+    """At least `frac` of the pixels (rays) within rtol / atol on every
+    channel, and the means within mean_rtol; returns the text."""
+    import torch
+
+    close = torch.isclose(got.reshape(-1, 3), ref.reshape(-1, 3), rtol=rtol,
+                          atol=atol).all(dim=-1)
+    share = float(close.float().mean())
+    m_got, m_ref = float(got.double().mean()), float(ref.double().mean())
+    rel = abs(m_got - m_ref) / max(abs(m_ref), 1e-30)
+    if not (share >= frac and rel <= mean_rtol and bool(
+            got.isfinite().all())):
+        raise AssertionError(f"{what}: {share:.5f} of the pixels within "
+                             f"rtol {rtol} / atol {atol} (need {frac}), "
+                             f"means {m_got} / {m_ref} (rel {rel})")
+    return (f"{share:.5f} of the pixels within rtol {rtol} / atol {atol}, "
+            f"means {m_got:.6f} / {m_ref:.6f} (rel {rel:.2e})")
+
+
+def phase_render(tris, dev, gpu_line):
+    """Phase 15, render64k: render() of random64k lit by an emissive quad
+    above a floor, every extension and shadow pass through the packet2
+    engine (kernels A and B; the h100 row's budgets and retrace cap). The
+    frame's overflow flag, its radiance (finite, lit), bounce 0's hits
+    against the brute-force oracle on 2048 rays, the same frame through
+    the wavefront engine with the same draws; A and B against their twins
+    on a bounce-1 extension pass's arguments (sorted incoherent rays);
+    frame time, rays and launches a frame, a profiler breakdown and peak
+    device memory. Returns A's and B's launches in one frame."""
+    from tinybvh_tpu_torch import BVH
+    from tinybvh_tpu_torch.render import camera, pathtracer
+    from tinybvh_tpu_torch.traverse import packet2
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    start = time.perf_counter()
+    W, spp, bounces = RENDER["W"], RENDER["spp"], RENDER["bounces"]
+    all_tris, emission = lit_box(tris)
+    bvh = BVH(all_tris, device=dev)
+    aux = bvh.packet_aux
+    scene = pathtracer.make_scene_arrays(bvh.tris, emissive=emission)
+    cam = camera.auto_camera(*bvh.aabb)
+    cap = get_tuning(device=dev).wf_cap_factor
+    sync(dev)
+    build_s = time.perf_counter() - start
+
+    def frame(route_aux=aux):
+        return pathtracer.render(
+            bvh.bvh8, scene, *cam, W, W, spp=spp, bounces=bounces,
+            sampler=pathtracer.Sampler.seeded(RENDER["seed"], dev),
+            cap_factor=cap, aux=route_aux)
+
+    t0 = time.perf_counter()
+    with Calls((packet2, "intersect_packets2"), keep=1) as first:
+        reset_launches()
+        (img, ovf), mem = peak_gib(frame, dev)
+        launches = read_launches(dev, ("cull", "mt_fused"),
+                                 "the render frame")
+    first_s = time.perf_counter() - t0
+    if bool(ovf):
+        raise AssertionError("render64k: the frame overflowed")
+    if not (bool(img.isfinite().all()) and float(img.max()) > 0.0):
+        raise AssertionError("render64k: radiance not finite, or black")
+    _, (_, _, cam_rays), _, (hits0, _) = first.calls[0]
+    idx = oracle_subset(cam_rays.o.shape[0], dev)
+    agree, ratio = oracle_check(hits0.take(idx), cam_rays.take(idx),
+                                bvh.tris, "render64k bounce 0")
+
+    # the same frame through the wavefront engine, the same draws
+    img_wf, ovf_wf = frame(None)
+    if bool(ovf_wf):
+        raise AssertionError(f"render64k: the wavefront frame overflowed at "
+                             f"cap {cap}")
+    gate = image_gate(img, img_wf, 1e-3, 1e-4, 0.999, 1e-3,
+                      "render64k packets against wavefront")
+
+    # kernels A and B on bounce 1's extension pass (sorted rays)
+    rec, restore = capture(packet2, ("cull", "mt_fused"))
+    try:
+        rays = camera.primary_rays(*cam, W, W, device=dev)
+        pathtracer.trace_paths(bvh.bvh8, scene, rays,
+                               pathtracer.Sampler.seeded(1, dev),
+                               bounces=2, aux=aux)
+    finally:
+        restore()
+    a, b = rec["cull"][2], rec["mt_fused"][2]
+    del rec
+    r = pair_kernels(a, b)
+    print(f"phase 15 render64k kernels, bounce-1 extension pass: "
+          f"{pair_text(a, b, r)} [{gpu_line}]", flush=True)
+
+    wf_s = wall_s(lambda: frame(None), dev, warmed=True)
+    frame_s = wall_s(frame, dev, warmed=True)
+    t0 = time.perf_counter()
+    parts = breakdown(frame, dev, frame_s * 1e3, retrace=True)
+    prof_s = time.perf_counter() - t0
+    traversals = spp * bounces * 2
+    n_rays = traversals * W * W
+    print(f"phase 15 render64k: {all_tris.shape[0]} tris (random64k, a "
+          f"floor, an emissive quad of {RENDER['emission']}), {W}x{W} "
+          f"pixels, {spp} samples, {bounces} bounces, packet routing (h100 "
+          f"row, retrace cap {cap}); frame {frame_s * 1e3:.3f} ms (median "
+          f"of 3 after a warm-up), {traversals} traversals and {n_rays} "
+          f"rays a frame, {n_rays / frame_s / 1e6:.3f} MRays/s; launches a "
+          f"frame {launches}; overflow 0; image mean "
+          f"{float(img.double().mean()):.6f}; bounce 0 oracle prim-agree "
+          f"{agree:.5f} checksum {ratio:.6f}; the same frame through the "
+          f"wavefront engine (cap {cap}, same draws) {wf_s * 1e3:.3f} ms "
+          f"(median of 3 after a warm-up): {gate}; breakdown of one frame: "
+          f"{parts}; peak device memory {mem:.3f} GiB; BVH and tables "
+          f"{build_s:.2f} s, first frame {first_s:.2f} s, profiled frame "
+          f"{prof_s:.2f} s, phase {time.perf_counter() - start:.1f} s "
+          f"[{gpu_line}]", flush=True)
+    return launches
+
+
+def scene16(tris, dev):
+    """The scene16 Scene: one random64k mesh, policy "rigid", with one
+    morph target (phase 13's deformation as a delta), 16 instances of it
+    on the 4x4 grid of bench.py:704-708 under one root node, the root's
+    LINEAR translation channel and instance 0's LINEAR weights channel,
+    and an emissive quad above the grid. Returns (scene, lamp instance
+    id)."""
+    from tinybvh_tpu_torch.scene.graph import Animation, Node, Scene
+    from tinybvh_tpu_torch.scene.mesh import Material, Mesh
+
+    rng = np.random.default_rng(0)
+    moved = (tris * np.float32([1.3, 0.7, 1.0]) + np.float32([2.0, -1.0, 0.5])
+             + rng.normal(scale=0.02, size=tris.shape).astype(np.float32))
+    s = Scene(device=dev)
+    mesh = Mesh(tris=tris.copy())
+    mesh.base_tris = tris.copy()
+    mesh.morph_targets = (moved - tris).astype(np.float32)[None]
+    mid = s.add_mesh(mesh, policy="rigid")
+    v = tris.reshape(-1, 3)
+    lo, ex = v.min(0), v.max(0) - v.min(0)
+    root = s.add_node(Node(name="grid"))
+    inst = [s.add_node(Node(mesh=mid, translation=np.float32(
+        [ex[0] * 1.1 * i, ex[1] * 1.1 * j, 0])), parent=root)
+        for i in range(4) for j in range(4)]
+    top = lo + ex * np.float32([4.4 / 2, 4.4 + 0.3, 0.5])
+    lamp = s.add_material(Material(emissive=np.full(3, SCENE16["emission"],
+                                                    np.float32)))
+    s.add_instance(s.add_quad(top, float(ex.max()) * 1.5, normal_axis=1,
+                              material=lamp))
+    s.animations.append(Animation([
+        dict(node=root, path="translation", times=np.array([0.0, 1.0]),
+             values=np.float32([[0, 0, 0], [ex[0] * 0.5, 0, 0]]),
+             interp="LINEAR"),
+        dict(node=inst[0], path="weights", times=np.array([0.0, 1.0]),
+             values=np.float32([[0.0], [1.0]]), interp="LINEAR")]))
+    return s, len(inst)
+
+
+def world_tris(s):
+    """The frame's world-space triangles, instance by instance in the
+    TLAS's instance order, and each instance's first row."""
+    parts, first = [], []
+    n = 0
+    for m, w in s._instances:
+        t = s.meshes[m].tris
+        parts.append(t @ w[:3, :3].T + w[:3, 3])
+        first.append(n)
+        n += t.shape[0]
+    return np.concatenate(parts).astype(np.float32), np.array(first)
+
+
+def scene_oracle(s, rays, dev):
+    """Scene.intersect (the lockstep two-level traversal) on ORACLE_RAYS
+    of `rays` against brute force over the frame's world-space
+    triangles: prim and instance agreement >= 0.999, hit-t checksum
+    within 1%."""
+    import torch
+    from tinybvh_tpu_torch.core.intersect import brute_force_closest
+
+    idx = oracle_subset(rays.o.shape[0], dev)
+    sub = rays.take(idx)
+    h = s.intersect(sub)
+    wt, first = world_tris(s)
+    ref = brute_force_closest(sub, torch.from_numpy(wt).to(dev))
+    first_t = torch.from_numpy(first).to(dev)
+    ref_inst = torch.where(ref.prim >= 0, torch.searchsorted(
+        first_t, ref.prim.long(), right=True) - 1, -1)
+    ref_prim = torch.where(ref.prim >= 0,
+                           ref.prim - first_t[ref_inst.clamp(min=0)], -1)
+    prim_agree = float((h.prim == ref_prim).float().mean())
+    inst_agree = float((h.inst == ref_inst).float().mean())
+    s_ours = float(h.t[h.prim >= 0].double().sum())
+    s_ref = float(ref.t[ref.prim >= 0].double().sum())
+    if s_ref <= 0.0:
+        raise AssertionError("scene16: the oracle subset hits nothing")
+    ratio = s_ours / s_ref
+    if not (prim_agree >= 0.999 and inst_agree >= 0.999
+            and abs(ratio - 1.0) <= 0.01):
+        raise AssertionError(f"scene16 Scene.intersect: prim-agree "
+                             f"{prim_agree} inst-agree {inst_agree} "
+                             f"checksum ratio {ratio}")
+    return (f"prim-agree {prim_agree:.5f} inst-agree {inst_agree:.5f} "
+            f"checksum {ratio:.6f}")
+
+
+def phase_scene16(tris, dev, gpu_line):
+    """Phase 15b, scene16: a Scene of 16 instances of a rigid, morphing
+    random64k (1,048,576 triangles) and an emissive quad, 3 frames of
+    update(t) (animation, morph, refit on the card, TLAS), tlas_packet()
+    and trace_paths_tlas(tpacket=) at 512x512, 1 sample, 2 bounces.
+    Each frame: Scene.intersect against brute force over the frame's
+    world triangles; the last frame's radiance against the wavefront
+    route with the same draws (the standard of tests/
+    test_pathtracer_tlas.py:152-157), a profiler breakdown with the
+    retrace's device time, and kernels A and B against their twins on
+    its per-instance extension and shadow passes (pass_kernels). Returns
+    A's and B's launches in one frame's trace."""
+    import torch
+    from tinybvh_tpu_torch.render import camera, pathtracer
+    from tinybvh_tpu_torch.render.pathtracer_tlas import trace_paths_tlas
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    start = time.perf_counter()
+    W, bounces = SCENE16["W"], SCENE16["bounces"]
+    s, lamp = scene16(tris, dev)
+    t0 = time.perf_counter()
+    s.update(0.0)
+    sync(dev)
+    first_s = time.perf_counter() - t0
+    wt, _ = world_tris(s)
+    v = wt.reshape(-1, 3)
+    cam = camera.auto_camera(v.min(0), v.max(0))
+    rays = camera.primary_rays(*cam, W, W, device=dev)
+    n_inst = len(s._instances)
+    inst_albedo = torch.full((n_inst, 3), 0.7, device=dev)
+    inst_albedo[lamp] = 0.0
+    inst_emissive = torch.zeros((n_inst, 3), device=dev)
+    inst_emissive[lamp] = SCENE16["emission"]
+    lm, lw = s._instances[lamp]
+    light_tris = torch.from_numpy(
+        (s.meshes[lm].tris @ lw[:3, :3].T + lw[:3, 3]).astype(
+            np.float32)).to(dev)
+    light_emission = torch.full((2, 3), SCENE16["emission"], device=dev)
+    shade = (inst_albedo, inst_emissive, light_tris, light_emission)
+    tun = get_tuning(device=dev)
+
+    def trace(tp, seed, route_tp=True, cap=4):
+        return trace_paths_tlas(
+            s.tlas, *shade, rays, pathtracer.Sampler.seeded(seed, dev),
+            bounces=bounces, cap_factor=cap, tpacket=tp if route_tp else None)
+
+    lines = []
+    for f, t in enumerate(SCENE16["frames"]):
+        sync(dev)
+        t0 = time.perf_counter()
+        s.update(t)
+        sync(dev)
+        upd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp = s.tlas_packet()
+        sync(dev)
+        tp_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        rad, ovf = trace(tp, f)
+        sync(dev)
+        trace_s = time.perf_counter() - t0
+        launches = read_launches(dev, ("cull", "mt_fused"),
+                                 "the scene16 frame")
+        if bool(ovf):
+            raise AssertionError(f"scene16 frame {f}: overflow")
+        if not (bool(rad.isfinite().all()) and float(rad.max()) > 0.0):
+            raise AssertionError(f"scene16 frame {f}: radiance not finite "
+                                 "or black")
+        t0 = time.perf_counter()
+        gate = scene_oracle(s, rays, dev)
+        oracle_s = time.perf_counter() - t0
+        n_rays = bounces * 2 * rays.o.shape[0]
+        lines.append(
+            f"frame {f} (t {t}): update {upd_s * 1e3:.3f} ms, tlas_packet "
+            f"{tp_s * 1e3:.3f} ms, trace {trace_s * 1e3:.3f} ms, frame "
+            f"{(upd_s + tp_s + trace_s) * 1e3:.3f} ms, "
+            f"{n_rays / trace_s / 1e6:.3f} MRays/s traced, launches "
+            f"{launches}, Scene.intersect {gate} "
+            f"({oracle_s:.1f} s)")
+
+    # the last frame: the wavefront route with the same draws, and where
+    # a frame's time goes
+    cap = tun.wf_cap_factor
+    rad_wf, ovf_wf = trace(tp, f, route_tp=False, cap=cap)
+    if bool(ovf_wf):
+        raise AssertionError(f"scene16: the wavefront route overflowed at "
+                             f"cap {cap}")
+    gate = image_gate(rad, rad_wf, 2e-2, 2e-3, 0.98, 2e-2,
+                      "scene16 tpacket against wavefront")
+    t_last = SCENE16["frames"][-1]
+    upd_s = wall_s(lambda: s.update(t_last), dev)
+    sp = profile_split(lambda: s.update(t_last), dev)
+    upd_dev = "not measured" if sp is None else f"{sp['total']:.3f} ms"
+    wf_s = wall_s(lambda: trace(tp, f, route_tp=False, cap=cap), dev,
+                  warmed=True)
+    # wall: the last frame's trace, timed above
+    t0 = time.perf_counter()
+    parts = breakdown(lambda: trace(tp, f), dev, trace_s * 1e3, retrace=True)
+    prof_s = time.perf_counter() - t0
+    # kernels A and B on the last frame's per-instance passes (refit BLAS)
+    pass_kernels(lambda: trace(tp, f), gpu_line,
+                 "phase 15b scene16 last trace")
+    print(f"phase 15b scene16: {n_inst - 1} instances of {tris.shape[0]} "
+          f"tris ({(n_inst - 1) * tris.shape[0]} in all, policy rigid, one "
+          f"morph target) and an emissive quad, {W}x{W} rays, 1 sample, "
+          f"{bounces} bounces; first update (build) {first_s:.3f} s; "
+          + "; ".join(lines) + f"; last frame: update {upd_s * 1e3:.3f} ms "
+          f"wall (median of 3), device {upd_dev}; trace breakdown {parts}; "
+          f"the same trace through the two-level wavefront (cap {cap}, same "
+          f"draws) {wf_s * 1e3:.3f} ms (median of 3 after a warm-up): "
+          f"{gate}; profiled trace {prof_s:.2f} s; "
+          f"{time.perf_counter() - start:.1f} s [{gpu_line}]", flush=True)
+    return launches
 
 
 PROBE_KPT = (16, 64, 256)    # keys a tile of kernel I: 1, 2, 8 super-blocks
@@ -1851,6 +2332,7 @@ def main(argv=()):
     import torch
 
     resolves_only = "--resolves" in argv
+    render_only = "--render" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1884,6 +2366,10 @@ def main(argv=()):
           f"{t_n:.2f} s (cc)", flush=True)
 
     tris = random_tris(65536, seed=0)
+    if render_only:
+        phase_render(tris, dev, gpu_line)
+        phase_scene16(tris, dev, gpu_line)
+        return 0
     scene = setup_scene(tris, dev, 640)
     bvh, rays, _, extent, _ = scene
     if resolves_only:
@@ -1923,6 +2409,13 @@ def main(argv=()):
     probe_kern, probe_launches = phase_probes(bvh, gpu_line)
     kern.update(probe_kern)
     launches.update(probe_launches)
+    t0 = time.perf_counter()
+    render_launches = phase_render(tris, dev, gpu_line)
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene_launches = phase_scene16(tris, dev, gpu_line)
+    print(f"phases 15 / 15b: {t_render:.1f} s / "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1934,8 +2427,10 @@ def main(argv=()):
          **{k: v for k, v in kern[name].items()
             if k in ("device_ms", "library_device_ms", "graph_runs",
                      "variants")},
-         **({"tlas_launches": tlas_launches[name]}
-            if name in tlas_launches else {})}
+         **{k: table[name] for k, table in (
+             ("tlas_launches", tlas_launches),
+             ("render_launches", render_launches),
+             ("scene_launches", scene_launches)) if name in table}}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

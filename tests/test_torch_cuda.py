@@ -1462,3 +1462,168 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
     with pytest.raises(ValueError):   # N a multiple of 16
         hg.onehot_gather(t[:2040].contiguous(), idx)
     assert (hg.LAUNCHES, ma.LAUNCHES) == before
+
+
+# ---- the render and scene layers on the card ------------------------------
+
+class _FixedDraws:
+    """A render.pathtracer.Sampler stand-in whose draws are made once on
+    the CPU (a seeded torch.Generator) and moved to each run's device, so
+    a card run and a CPU run see the same numbers."""
+
+    def __init__(self, seed):
+        self.g = torch.Generator().manual_seed(seed)
+        self.draws = []
+        self.i = 0
+
+    def bounce(self, n_rays, n_lights, device):
+        if self.i == len(self.draws):
+            self.draws.append(
+                (torch.randint(0, n_lights, (n_rays,), generator=self.g),
+                 *torch.rand((4, n_rays), generator=self.g)))
+        out = [x.to(device) for x in self.draws[self.i]]
+        self.i += 1
+        return out
+
+    def rewind(self):
+        self.i = 0
+        return self
+
+
+def _lit_box(tris):
+    """The scene with a floor below it and an emissive quad above it."""
+    v = tris.reshape(-1, 3)
+    lo, hi = v.min(0), v.max(0)
+    c, ext = (lo + hi) / 2, hi - lo
+
+    def quad(y, h):
+        a, b = [c[0] - h[0], y, c[2] - h[2]], [c[0] + h[0], y, c[2] - h[2]]
+        cc, dd = [c[0] + h[0], y, c[2] + h[2]], [c[0] - h[0], y, c[2] + h[2]]
+        return np.array([[a, b, cc], [a, cc, dd]], np.float32)
+
+    all_tris = np.concatenate([tris, quad(lo[1] - 1.0, ext),
+                               quad(hi[1] + 3.0, 0.25 * ext)])
+    emission = np.zeros((all_tris.shape[0], 3), np.float32)
+    emission[-2:] = 8.0
+    return all_tris.astype(np.float32), emission
+
+
+def _pixels_close(got, ref, rtol, atol, frac, mean_rtol):
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    assert np.isfinite(got).all()
+    close = np.isclose(got, ref, rtol=rtol, atol=atol).all(axis=1)
+    assert close.mean() >= frac, f"only {close.mean():.4f} rays match"
+    np.testing.assert_allclose(got.mean(), ref.mean(), rtol=mean_rtol)
+
+
+@pytest.mark.parametrize("route", ["wavefront", "packets"])
+def test_trace_paths_on_cuda_matches_cpu(scene, route):
+    """trace_paths on the card (kernels A and B for route "packets")
+    against the port's CPU run with the same draws: at least 0.999 of the
+    rays within rtol 1e-3 / atol 1e-4 (tests/test_pathtracer.py:330-331;
+    the two devices round sin, cos and divisions by a scalar
+    differently, so a ray that grazes an edge may take another path),
+    and the means within 1e-3."""
+    from tinybvh_tpu_torch.render import camera, pathtracer
+    from tinybvh_tpu_torch.traverse.packet2 import build_packet_aux
+
+    tris, _ = scene
+    all_tris, emission = _lit_box(tris)
+    cam = camera.auto_camera(all_tris.reshape(-1, 3).min(0),
+                             all_tris.reshape(-1, 3).max(0))
+    draws = _FixedDraws(4)
+    out = []
+    for dev in ("cpu", "cuda"):
+        bvh = BVH(all_tris, device=dev)
+        sc = pathtracer.make_scene_arrays(bvh.tris, emissive=emission)
+        rays = camera.primary_rays(*cam, 64, 64, device=dev)
+        aux = build_packet_aux(bvh.bvh8) if route == "packets" else None
+        rad, ovf = pathtracer.trace_paths(bvh.bvh8, sc, rays, draws.rewind(),
+                                          bounces=2, aux=aux)
+        assert rad.device.type == dev and not bool(ovf)
+        out.append(rad)
+    _pixels_close(out[1], out[0], 1e-3, 1e-4, 0.999, 1e-3)
+    assert float(out[0].max()) > 0
+
+
+@pytest.mark.parametrize("route", ["wavefront", "tpacket"])
+def test_trace_paths_tlas_on_cuda_matches_cpu(route):
+    """trace_paths_tlas on the card against the CPU with the same draws,
+    at the standard of tests/test_pathtracer_tlas.py:152-157."""
+    from tinybvh_tpu_torch.render.pathtracer_tlas import trace_paths_tlas
+    from tinybvh_tpu_torch.tlas.instance import build_tlas
+    from tinybvh_tpu_torch.tlas.packet import build_tlas_packet
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    rng = np.random.default_rng(5)
+    tris, emission = _lit_box(random_tris(2000, seed=4))
+    light = tris[-2:]
+    mats = []
+    for i in range(3):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = [11.0 * i, 0, 0]
+        mats.append((0, m))
+    mats.append((1, np.eye(4, dtype=np.float32)))
+    o = np.tile(np.float32([[16.0, 8.0, -25.0]]), (4096, 1))
+    d = rng.normal(size=(4096, 3)).astype(np.float32) * 0.25
+    d[:, 2] = 1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    draws = _FixedDraws(6)
+    out = []
+    for dev in ("cpu", "cuda"):
+        blases = [BVH(tris[:-2], device=dev).bvh8, BVH(light, device=dev).bvh8]
+        tl = build_tlas(blases, mats, device=dev)
+        tp = build_tlas_packet(blases, mats) if route == "tpacket" else None
+        rad, ovf = trace_paths_tlas(
+            tl, np.float32([[0.7] * 3] * 3 + [[0, 0, 0]]),
+            np.float32([[0] * 3] * 3 + [[8, 8, 8]]), light,
+            np.full((2, 3), 8.0, np.float32), make_rays(o, d, device=dev),
+            draws.rewind(), bounces=2, tpacket=tp)
+        assert rad.device.type == dev and not bool(ovf)
+        out.append(rad)
+    _pixels_close(out[1], out[0], 2e-2, 2e-3, 0.98, 2e-2)
+    assert float(out[0].max()) > 0
+
+
+def test_scene_update_refit_on_cuda_matches_cpu():
+    """Scene.update of a rigid, morphing mesh under an animated root: on
+    the card the refit BLAS (bounds and leaf triangles) and the TLAS
+    equal the CPU's bit for bit, frame after frame."""
+    from tinybvh_tpu_torch.scene.graph import Animation, Node, Scene
+    from tinybvh_tpu_torch.scene.mesh import Mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    tris = random_tris(3000, seed=2)
+    rng = np.random.default_rng(2)
+    delta = rng.normal(scale=0.3, size=tris.shape).astype(np.float32)
+    scenes = []
+    for dev in ("cpu", "cuda"):
+        s = Scene(device=dev)
+        m = Mesh(tris=tris.copy())
+        m.base_tris = tris.copy()
+        m.morph_targets = delta[None]
+        mid = s.add_mesh(m, policy="rigid")
+        root = s.add_node(Node(name="root"))
+        for i in range(4):
+            s.add_node(Node(mesh=mid, translation=np.float32([12.0 * i, 0,
+                                                              0])),
+                       parent=root)
+        s.animations.append(Animation([
+            dict(node=root, path="translation", times=np.array([0.0, 1.0]),
+                 values=np.float32([[0, 0, 0], [3, 1, 0]]), interp="LINEAR"),
+            dict(node=1, path="weights", times=np.array([0.0, 1.0]),
+                 values=np.float32([[0.0], [1.0]]), interp="LINEAR")]))
+        scenes.append(s)
+    for t in (0.0, 0.3, 0.9):
+        for s in scenes:
+            s.update(t)
+        c, g = scenes
+        assert g.device.type == "cuda"
+        for k in ("bounds", "leaf_tris", "child", "leaf_prim"):
+            assert torch.equal(getattr(g._blas[0], k).cpu(),
+                               getattr(c._blas[0], k)), k
+        for k in ("bounds", "child", "inst_inv", "inst_root"):
+            assert torch.equal(getattr(g.tlas, k).cpu(),
+                               getattr(c.tlas, k)), k

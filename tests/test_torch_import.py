@@ -32,6 +32,12 @@ def test_import_loads_no_jax():
         "import tinybvh_tpu_torch.traverse.stack\n"
         "import tinybvh_tpu_torch.probes.gather\n"
         "import tinybvh_tpu_torch.probes.mt_ablation\n"
+        "import tinybvh_tpu_torch.core.rng\n"
+        "import tinybvh_tpu_torch.render.camera\n"
+        "import tinybvh_tpu_torch.render.textures\n"
+        "import tinybvh_tpu_torch.render.pathtracer\n"
+        "import tinybvh_tpu_torch.render.pathtracer_tlas\n"
+        "import tinybvh_tpu_torch.scene.mesh, tinybvh_tpu_torch.scene.graph\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tinybvh_tpu'))\n"
         "print(bad)\n"
@@ -65,7 +71,8 @@ def test_builder_source_is_the_jax_packages():
     assert port_src == jax_src
 
 
-@pytest.mark.parametrize("entry", ["bvh", "make_rays", "tuning"])
+@pytest.mark.parametrize("entry", ["bvh", "make_rays", "tuning", "scene",
+                                   "primary_rays", "scene_arrays"])
 def test_no_card_raises_unless_cpu_is_asked(monkeypatch, entry):
     """Without a CUDA device, the entry points raise instead of carrying
     on on the CPU; device="cpu" runs there."""
@@ -73,23 +80,36 @@ def test_no_card_raises_unless_cpu_is_asked(monkeypatch, entry):
 
     from tinybvh_tpu_torch import BVH, make_rays
     from tinybvh_tpu_torch.io.loaders import random_tris
+    from tinybvh_tpu_torch.render import camera, pathtracer
+    from tinybvh_tpu_torch.scene.graph import Scene
     from tinybvh_tpu_torch.tuning import detect_generation
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     o = np.zeros((4, 3), np.float32)
     d = np.tile(np.float32([[0.0, 0.0, 1.0]]), (4, 1))
+    cam = camera.look_at([0, 0, -5], [0, 0, 0])
     calls = {"bvh": lambda **kw: BVH(random_tris(64, seed=0), **kw),
              "make_rays": lambda **kw: make_rays(o, d, **kw),
-             "tuning": lambda **kw: detect_generation(**kw)}
+             "tuning": lambda **kw: detect_generation(**kw),
+             "scene": lambda **kw: Scene(**kw),
+             "primary_rays": lambda **kw: camera.primary_rays(
+                 *cam, 8, 4, **kw),
+             "scene_arrays": lambda **kw: pathtracer.make_scene_arrays(
+                 random_tris(8, seed=0), **kw)}
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
     out = calls[entry](device="cpu")
-    if entry == "make_rays":
+    if entry in ("make_rays", "primary_rays"):
         assert out.o.device.type == "cpu"
         # tensor inputs keep their own device
         assert make_rays(out.o, out.d).o.device.type == "cpu"
-    elif entry == "bvh":
+    elif entry in ("bvh", "scene"):
         assert out.device.type == "cpu"
+    elif entry == "scene_arrays":
+        assert all(v.device.type == "cpu" for v in out.values())
+        # tensor triangles keep their own device
+        assert pathtracer.make_scene_arrays(
+            out["tris"])["tris"].device.type == "cpu"
     else:
         assert out == "cpu"
 

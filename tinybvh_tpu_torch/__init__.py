@@ -9,8 +9,11 @@ wavefront engine (traverse/wavefront.py) and the per-ray-stack lockstep
 engine (traverse/wide.py); the v1 packet engine (traverse/packet.py);
 `BVH.refit` and the per-frame refit (builders/refit.py); and instancing,
 `TLAS(blases, transforms)` with the two-level engines (tlas/instance.py)
-and the per-instance and bucketed packet engines (tlas/packet.py). See
-ROADMAP.md for what is still to port."""
+and the per-instance and bucketed packet engines (tlas/packet.py); the
+scene layer (scene/: meshes, loaders, the animated node graph and its
+per-frame BVH update) and the path tracers (render/: `render`,
+`trace_paths`, `trace_paths_tlas`). See ROADMAP.md for what is still to
+port."""
 
 from tinybvh_tpu_torch.api import BVH, TLAS
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays

@@ -77,3 +77,8 @@ def cross(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 def norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False):
     return torch.sqrt((v * v).sum(dim, keepdim=keepdim))
+
+
+def normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """v / max(|v|, 1e-20) along `dim` (≙ JAX vecmath.normalize)."""
+    return v / torch.clamp(norm(v, dim=dim, keepdim=True), min=1e-20)

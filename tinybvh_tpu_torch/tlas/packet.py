@@ -348,14 +348,16 @@ def intersect_tlas_packets2_sorted(tp: TLASPacket, rays: Rays, scene_lo,
                                    scene_hi, max_leaves: int = 256,
                                    retrace=True, wf_cap_factor: int = 6,
                                    any_hit: bool = False,
-                                   t_max_static: float = BVH_FAR):
+                                   t_max_static: float = BVH_FAR,
+                                   max_blocks: int = 128):
     """The TLAS packet trace for incoherent rays: coherence-sort into
     tiles, trace per instance, scatter back. Returns (Hits in input
     order, (R,) overflow mask)."""
     order, inverse = sort_rays_coherent(rays.o, rays.d, scene_lo, scene_hi)
     hits, overflow = intersect_tlas_packets2(
         tp, rays.take(order), t_max=t_max_static, max_leaves=max_leaves,
-        retrace=retrace, wf_cap_factor=wf_cap_factor, any_hit=any_hit)
+        retrace=retrace, wf_cap_factor=wf_cap_factor, any_hit=any_hit,
+        max_blocks=max_blocks)
     return (hits.take(inverse),
             torch.repeat_interleave(overflow, TILE)[inverse])
 
