@@ -6,6 +6,7 @@
                                        # grid16, no JSON lines
     python3 chip_smoke.py --render     # phases 1-2, 15 and 15b, no JSON
                                        # lines
+    python3 chip_smoke.py --foliage    # phases 1-2 and 16, no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -130,13 +131,36 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and the retraces' device time; A and B against their twins on the
      last trace's per-instance extension and shadow passes with the most
      live tiles (refit BLAS tables);
+ 16. foliage64k: random64k with per-triangle opacity micromaps baked
+     from a leaf-shaped alpha (a disc of the barycentric domain, its
+     radius hashed from the prim id; about half the cells opaque) at S = 8
+     (pack 2) and S = 16 (pack 1): phase 4's camera rays through
+     intersect_packets2 and shadow segments to their hits through
+     is_occluded_packets2 (h100 row budgets, the wavefront retrace with
+     the micromaps at its cap), the launch counts reset just before and
+     read just after; zero residual overflow, prim agreement >= 0.999
+     and the hit-t checksum within 1% against an alpha-aware brute force
+     on 2048 rays (all pairs, Möller–Trumbore, the cell's bit, the
+     minimum; written here), shadow agreement >= 0.999, an all-opaque
+     micromap equal to none on every ray, and some rays changed by the
+     micromaps; kernel B's micromap mode against its twin on each of the
+     four resolves, with its device time beside B's without micromaps on
+     the same rays, and its occupancy; inst8 with micromaps through the
+     bucketed engine (rounds and escalation leaving nothing to the
+     two-level wavefront) against the brute force per instance; 4096
+     sphere queries over random64k's BVH2 against brute force on 256;
+     the voxel DDA on a full 256^3 VoxelSet (a sphere shell and a height
+     field, millions of voxels) with 512x512 rays against a sampling
+     oracle on 2048; each timed;
 then a JSON line of the kernels (launches counted on each kernel's
 own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
 11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
 drives on that trace's inputs, since no path of the package runs them;
 A and B also carry tlas_launches, their launches in one phase 12
 bucketed call, render_launches, theirs in one phase 15 frame, and
-scene_launches, theirs in one phase 15b frame's trace; H and I theirs
+scene_launches, theirs in one phase 15b frame's trace; B's micromap
+mode, mt_fused_omap, its launches in phase 16's main path, where A's
+are foliage_launches; H and I theirs
 in phase 14's drivers, with device_ms, graph_runs and, for I, whose
 entry is the full variant at 64 clustered keys a tile, a `variants`
 dict), each with its time, its plain twin's, and its bound
@@ -175,7 +199,8 @@ REPLACES = {"cull": "tinybvh_tpu/traverse/packet2.py:488",
             "gather_C100": "benchmarks/pallas_gather_probe2.py:134",
             "gather_D2048": "benchmarks/pallas_gather_probe2.py:155",
             "gather_D8192": "benchmarks/pallas_gather_probe2.py:155",
-            "mt_ablation": "benchmarks/mt_ablation_probe.py:115"}
+            "mt_ablation": "benchmarks/mt_ablation_probe.py:115",
+            "mt_fused_omap": "tinybvh_tpu/traverse/packet2.py:858"}
 SOURCES = {"cull": "cull.cu", "mt_fused": "mt_fused.cu",
            "mt_gathered": "mt_gathered.cu", "cull_blocks": "cull_blocks.cu",
            "leaf_resolve_v2": "leaf_resolve.cu",
@@ -184,7 +209,7 @@ SOURCES = {"cull": "cull.cu", "mt_fused": "mt_fused.cu",
            "frustum_walk": "frustum_walk.cu",
            **dict.fromkeys([k for k in REPLACES if k.startswith("gather")],
                            "gather_probe.cu"),
-           "mt_ablation": "mt_ablation.cu"}
+           "mt_ablation": "mt_ablation.cu", "mt_fused_omap": "mt_fused.cu"}
 ORACLE_RAYS = 2048
 
 # The least time the card could take for a kernel's work: the larger of
@@ -1264,11 +1289,11 @@ def full_retrace_ml(bvh8):
     return 4 * (-(-n_segs // 8) * 8), n_segs
 
 
-def instance_scene(bvh, tris, n, dev, W=INST_W):
+def instance_scene(bvh, tris, n, dev, W=INST_W, omaps=None):
     """bench.py's _bench_instances scene: nx*ny*nz translated instances of
     one BLAS spaced at 1.15 x its extent, the TLAS and its packet tables
-    built (timed), and W x W camera rays over the
-    grid in 16x16 tile order."""
+    built (timed; with omaps, the BLAS's micromaps baked into them), and
+    W x W camera rays over the grid in 16x16 tile order."""
     from tinybvh_tpu_torch import make_rays
     from tinybvh_tpu_torch.tlas.packet import build_tlas_packet
 
@@ -1284,7 +1309,7 @@ def instance_scene(bvh, tris, n, dev, W=INST_W):
                 mats.append(m)
     mats = np.stack(mats)
     t0 = time.perf_counter()
-    tp = build_tlas_packet([bvh.bvh8], mats)
+    tp = build_tlas_packet([bvh.bvh8], mats, omaps=omaps)
     sync(dev)
     build_s = time.perf_counter() - t0
     whi = lo + ex * np.array([1.15 * (nx - 1) + 1, 1.15 * (ny - 1) + 1,
@@ -2310,6 +2335,530 @@ def phase_probes(bvh, gpu_line, n_plain=20):
 
 
 # the occupancy entries of phases 6 and 11: name -> (C entry, *args)
+# --------------------------------------------------------------------------
+# phase 16: foliage64k, opacity micromaps
+# --------------------------------------------------------------------------
+
+FOLIAGE = dict(sizes=(8, 16), spheres=4096, sphere_oracle=256, vox_W=512,
+               vox_samples=48000)
+# fp32 / int operations of the micromap test per pair that hits
+# geometrically (mt_fused.cu omap_opaque): u and v (2 multiplies), times S
+# (2), two conversions and four clamps, the bit index (a multiply-add and
+# a shift, an and), the word's load and conversion, shift, and, compare:
+# 20, all counted at the fp32 rate
+OMAP_OPS = 20
+
+
+def leaf_alpha(prim, u, v):
+    """A leaf-shaped alpha: opaque inside a disc of the barycentric domain
+    whose radius (0.2 to 0.45) comes from a hash of the prim id, about
+    half of the cells inside a triangle."""
+    h = (np.asarray(prim, np.int64) * 2654435761) % 4096 / 4096.0
+    return (u - 0.3) ** 2 + (v - 0.3) ** 2 < (0.2 + 0.25 * h) ** 2
+
+
+def omap_oracle(o, d, tris, omap, t_max=1e30, any_hit=False, chunk=4096):
+    """The alpha-aware brute force, written here and not in the package:
+    every (ray, triangle) pair by Möller–Trumbore, then the bit of the
+    hit's micromap cell (floor(u S), floor(v S)), then the minimum (any
+    hit: any pair below t_max). o, d (R, 3); tris (N, 3, 3); omap (N, S,
+    S) bool. Returns (t, prim) or (R,) occluded."""
+    import torch
+
+    R = o.shape[0]
+    S = omap.shape[-1]
+    dev = o.device
+    best_t = torch.full((R,), 1e30, dtype=torch.float32, device=dev)
+    best_p = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    occ = torch.zeros(R, dtype=torch.bool, device=dev)
+    oo, dd = o[:, None, :], d[:, None, :]
+
+    def cross(a, b):
+        return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                           dim=-1)
+
+    for base in range(0, tris.shape[0], chunk):
+        tc = tris[base:base + chunk]
+        v0 = tc[None, :, 0]
+        e1 = tc[None, :, 1] - v0
+        e2 = tc[None, :, 2] - v0
+        h = cross(dd, e2)
+        det = (e1 * h).sum(-1)
+        ok = det.abs() > 1e-9
+        inv = 1.0 / torch.where(ok, det, 1.0)
+        s = oo - v0
+        u = (s * h).sum(-1) * inv
+        q = cross(s, e1)
+        v = (dd * q).sum(-1) * inv
+        t = (e2 * q).sum(-1) * inv
+        hit = (ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+               & (t < t_max))
+        iu = torch.clamp(torch.where(hit, u * S, 0.0).long(), 0, S - 1)
+        iv = torch.clamp(torch.where(hit, v * S, 0.0).long(), 0, S - 1)
+        ids = torch.arange(base, base + tc.shape[0], device=dev)[None, :]
+        hit &= omap[ids, iu, iv]
+        if any_hit:
+            occ |= hit.any(dim=1)
+            continue
+        tt, a = torch.where(hit, t, 1e30).min(dim=1)
+        better = tt < best_t
+        best_t = torch.where(better, tt, best_t)
+        best_p = torch.where(better, a + base, best_p)
+    return occ if any_hit else (best_t, best_p)
+
+
+def omap_gates(hits, rays, idx, tris, omap, what):
+    """prim agreement and the hit-t checksum ratio of hits[idx] against
+    the alpha-aware oracle; raises below 0.999 or outside 1%."""
+    ref_t, ref_p = omap_oracle(rays.o[idx], rays.d[idx], tris, omap)
+    h = hits.take(idx)
+    agree = float((h.prim.long() == ref_p).float().mean())
+    s_ours = float(h.t[h.prim >= 0].double().sum())
+    s_ref = float(ref_t[ref_p >= 0].double().sum())
+    if s_ref <= 0.0:
+        raise AssertionError(f"{what}: the oracle subset hits nothing")
+    ratio = s_ours / s_ref
+    if not (agree >= 0.999 and abs(ratio - 1.0) <= 0.01):
+        raise AssertionError(f"{what}: alpha-aware oracle prim-agree {agree}"
+                             f", checksum ratio {ratio}")
+    return agree, ratio
+
+
+def omap_tests(b, n_sb, chunk=64):
+    """(triangle, ray) pairs kernel B's micromap call `b` tests (as
+    fused_tests) and, among them, the pairs that hit geometrically, whose
+    micromap bit it then reads: the bound's two units of work."""
+    import torch
+    from tinybvh_tpu_torch.traverse import packet2
+
+    offs, counts, ff, gtab = b[0], b[1], b[4], b[6]
+    k_cap, tri_blk, rps, pack = b[7], b[8], b[9], b[10]
+    dev = offs.device
+    walked = torch.minimum(n_sb * tri_blk,
+                           counts.clamp(max=k_cap).long() * rps)
+    rows = torch.arange(k_cap * rps, device=dev)
+    geo = 0
+    for c0 in range(0, offs.shape[0], chunk):
+        c1 = min(offs.shape[0], c0 + chunk)
+        addr = offs[c0:c1][:, rows // rps].long() + rows % rps
+        g = gtab[addr]
+        run = rows[None, :] < walked[c0:c1, None]
+        for base in ((0, 48) if pack == 2 else (0,)):
+            hit = packet2._signed_terms(g, ff[c0:c1], base)[4]
+            geo += int((hit & run[..., None]).sum())
+    return fused_tests(b, n_sb), geo
+
+
+def omap_kernel_entry(b, n_kernel=20, n_plain=3):
+    """Kernel B's micromap instantiation against its twin on one captured
+    call `b` (torch.equal on every output), timed by CUDA events, as
+    device time (a CUDA graph) and its twin, with its bound: the
+    Möller–Trumbore work of fused_tests plus OMAP_OPS per geometric hit."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    dev = b[0].device
+    on_gpu = dev.type == "cuda"
+
+    def plain(*args):
+        return packet2._mt_fused_plain(*args)[:5]
+
+    kern = packet2._mt_fused_cuda if on_gpu else plain
+    *ref, n_sb = packet2._mt_fused_plain(*b)
+    got = kern(*b)
+    err = equal_twin("mt_fused_omap", got, ref)
+    tests, geo = omap_tests(b, n_sb)
+    r = dict(max_abs_err=err,
+             ms=time_ms(lambda: kern(*b), dev, n_kernel),
+             device_ms=(device_ms(lambda: kern(*b), n_kernel) if on_gpu
+                        else float("nan")),
+             plain_ms=time_ms(lambda: plain(*b), dev, n_plain),
+             shape=f"T={b[0].shape[0]} k_cap={b[7]} tri_blk={b[8]} "
+                   f"rps={b[9]} pack={b[10]} S={b[12]} any_hit={b[11]}",
+             tests=tests, geo_hits=geo,
+             **bound_of(nbytes(b) + nbytes(got),
+                        {"fp32": tests * OPS_PER_UNIT["mt_fused"]
+                         + geo * OMAP_OPS}), library_ms=None)
+    return r
+
+
+def foliage_tables(bvh, S):
+    """Micromaps of every random64k triangle at S x S (leaf_alpha), aligned
+    with the BVH8's leaves, and the packet tables that carry them."""
+    from tinybvh_tpu_torch.ops.omap import bake_omap, leaf_align
+    from tinybvh_tpu_torch.traverse import packet2
+
+    om = bake_omap(bvh.tris.shape[0], leaf_alpha, S=S, device=bvh.device)
+    leaf = leaf_align(om, bvh.bvh8,
+                      leaf_prim_host=bvh._bvh8_host["leaf_prim"])
+    return om, leaf, packet2.build_packet_aux(bvh.bvh8, omap=leaf)
+
+
+def foliage_traces(bvh, aux, rays, center, extent, tun, cutoff):
+    """The micromap path: camera rays through intersect_packets2, then the
+    shadow segments from phase 4's light to those hits through
+    is_occluded_packets2, both at the h100 row's budgets with the
+    wavefront retrace (and the micromaps) at its cap. Returns (hits,
+    primary overflow, (light, points, shadow rays), occluded, shadow
+    overflow)."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    kw = dict(max_leaves=tun.max_leaves, max_blocks=tun.max_blocks,
+              retrace=True, wf_cap_factor=tun.wf_cap_factor)
+    hits, ov = packet2.intersect_packets2(bvh.bvh8, aux, rays, **kw)
+    shadow = shadow_rays(hits, rays, center, extent)
+    occ, ov2 = packet2.is_occluded_packets2(bvh.bvh8, aux, shadow[0],
+                                            shadow[1], cutoff=cutoff, **kw)
+    return hits, ov, shadow, occ, ov2
+
+
+def foliage_tlas(bvh, tris, om, leaf, gpu_line):
+    """inst8 with micromaps: build_tlas_packet(omaps=) and the bucketed
+    engine with rounds covering every tile's candidates and an escalation
+    budget covering the whole BLAS, so that no tile is left to the
+    two-level wavefront (which takes no micromaps and raises with them);
+    gated against the smoke's alpha-aware brute force per instance on
+    2048 middle rays."""
+    import torch
+    from tinybvh_tpu_torch.core.rays import Hits
+    from tinybvh_tpu_torch.core.vecmath import mat3_apply
+    from tinybvh_tpu_torch.tlas.packet import (
+        intersect_tlas_packets2_bucketed, tile_candidates,
+    )
+
+    dev = bvh.device
+    tp, mats, rays, build_s, _, _ = instance_scene(bvh, tris, INST8["n"],
+                                                   dev, omaps=[leaf])
+    (_, _, n_cand), = tile_candidates(tp, rays, 1)
+    rounds = int(n_cand.max())
+    ml, _ = full_retrace_ml(bvh.bvh8)
+    kw = dict(rounds=rounds, max_leaves=INST8["max_leaves"],
+              max_blocks=INST8["max_blocks"], retrace="packet",
+              retrace_ml=ml, retrace_blocks=INST8["retrace_blocks"])
+    reset_launches()
+    h, ovf = intersect_tlas_packets2_bucketed(tp, rays, **kw)
+    got = read_launches(dev, ("cull", "mt_fused_omap"), "foliage inst8")
+    if bool(ovf.any()):
+        raise AssertionError("foliage inst8: residual overflow")
+    secs = wall_s(lambda: intersect_tlas_packets2_bucketed(tp, rays, **kw),
+                  dev, warmed=True)
+    R = rays.o.shape[0]
+    idx = middle(R, ORACLE_RAYS, dev)
+    o, d = rays.o[idx], rays.d[idx]
+    t_ref = torch.full((idx.shape[0],), 1e30, device=dev)
+    p_ref = torch.full((idx.shape[0],), -1, dtype=torch.int32, device=dev)
+    i_ref = torch.full((idx.shape[0],), -1, dtype=torch.int32, device=dev)
+    for i in range(tp.inst_inv.shape[0]):
+        inv = tp.inst_inv[i]
+        t_i, p_i = omap_oracle(mat3_apply(inv[None, :3, :3], o) + inv[:3, 3],
+                               mat3_apply(inv[None, :3, :3], d), bvh.tris,
+                               om)
+        better = t_i < t_ref
+        t_ref = torch.where(better, t_i, t_ref)
+        p_ref = torch.where(better, p_i.to(torch.int32), p_ref)
+        i_ref = torch.where(better, i, i_ref)
+    ref = Hits(t=t_ref, u=t_ref, v=t_ref, prim=p_ref, inst=i_ref)
+    gates = tlas_gates(h.take(idx), ref, "foliage inst8")
+    print(f"phase 16 foliage inst8: {tp.inst_inv.shape[0]} instances, {R} "
+          f"rays, TLAS build {build_s:.3f} s, bucketed rounds {rounds} "
+          f"escalation {ml} leaves: {R / secs / 1e6:.3f} MRays/s, hit rate "
+          f"{float((h.prim >= 0).float().mean()):.4f}, residual overflow 0, "
+          f"launches {got}, alpha-aware oracle {gates} [{gpu_line}]",
+          flush=True)
+
+
+def foliage_spheres(bvh, tris, gpu_line):
+    """intersect_sphere: FOLIAGE["spheres"] spheres over random64k's BVH2
+    against brute-force sphere_tri_overlap on FOLIAGE["sphere_oracle"] of
+    them, timed."""
+    import torch
+    from tinybvh_tpu_torch.core.intersect import sphere_tri_overlap
+    from tinybvh_tpu_torch.layouts.bvh2 import BVH2
+    from tinybvh_tpu_torch.ops.queries import intersect_sphere
+    from tinybvh_tpu_torch.traverse.stack import pack_tris
+
+    dev = bvh.device
+    bvh2 = BVH2.from_host(bvh._host, dev)
+    packed = pack_tris(bvh2, bvh.tris)
+    leaf_max = int(bvh._host["count"].max())
+    rng = np.random.default_rng(16)
+    lo, hi = tris.reshape(-1, 3).min(0), tris.reshape(-1, 3).max(0)
+    n = FOLIAGE["spheres"]
+    c = torch.from_numpy(rng.uniform(lo, hi, (n, 3)).astype(
+        np.float32)).to(dev)
+    r = torch.from_numpy(rng.uniform(0.001, 0.012, n).astype(
+        np.float32) * float(np.max(hi - lo))).to(dev)
+    got = intersect_sphere(bvh2, packed, c, r, leaf_max=leaf_max)
+    secs = wall_s(lambda: intersect_sphere(bvh2, packed, c, r,
+                                           leaf_max=leaf_max), dev,
+                  warmed=True)
+    k = FOLIAGE["sphere_oracle"]
+    t = bvh.tris
+    ref = torch.zeros(k, dtype=torch.bool, device=dev)
+    for base in range(0, t.shape[0], 8192):
+        tc = t[base:base + 8192]
+        ref |= sphere_tri_overlap(c[:k, None], r[:k, None], tc[None, :, 0],
+                                  tc[None, :, 1], tc[None, :, 2]).any(dim=1)
+    if not torch.equal(got[:k], ref):
+        raise AssertionError(f"foliage spheres: {int((got[:k] != ref).sum())}"
+                             f" of {k} differ from brute force")
+    share = float(got.float().mean())
+    if not 0.0 < share < 1.0:
+        raise AssertionError(f"foliage spheres: overlap share {share}")
+    print(f"phase 16 spheres: {n} spheres over the BVH2 of {t.shape[0]} "
+          f"triangles in {secs * 1e3:.3f} ms ({n / secs / 1e6:.4f} "
+          f"Mqueries/s), overlapping {share:.4f}, equal to brute force on "
+          f"{k} [{gpu_line}]", flush=True)
+
+
+def voxel_scene():
+    """A full 256^3 VoxelSet: a sphere shell (radius 100, 2 voxels thick)
+    and a height field filled from y = 4 to 30-62 voxels, both kept 4-8
+    voxels off the volume's faces (rays enter through empty cells, so the
+    DDA's entry offset of 1e-4 in t picks no cell that sampling would
+    not). Returns (VoxelSet, (256, 256, 256) bool occupancy)."""
+    from tinybvh_tpu_torch.ops.voxel import VoxelSet
+
+    g = np.arange(256, dtype=np.float32)
+    x, y, z = g[:, None, None], g[None, :, None], g[None, None, :]
+    r = np.sqrt((x - 128) ** 2 + (y - 150) ** 2 + (z - 128) ** 2)
+    hf = 46 + 10 * np.sin(x / 19) + 6 * np.cos(z / 13)
+    inner = ((x >= 8) & (x < 248) & (z >= 8) & (z < 248)) & (y >= 4)
+    occ = (((r >= 99) & (r < 101)) | (y < hf)) & inner
+    xs, ys, zs = np.nonzero(occ)
+    vs = VoxelSet()
+    vs.set(xs, ys, zs)
+    return vs, occ
+
+
+def voxel_march(o, d, occ, n, t_end=3.0, chunk=128):
+    """The sampling oracle (as tests/test_ops.py's): each ray's first
+    occupied voxel among n evenly spaced points in [0, t_end], or -1, and
+    the t of that point."""
+    import torch
+
+    dev = o.device
+    occ_t = torch.from_numpy(occ).to(dev)
+    ts = torch.linspace(0, t_end, n, device=dev)
+    out = torch.full((o.shape[0], 3), -1, dtype=torch.int64, device=dev)
+    t_out = torch.full((o.shape[0],), float("inf"), device=dev)
+    for c0 in range(0, o.shape[0], chunk):
+        p = torch.floor((o[c0:c0 + chunk, None] + ts[None, :, None]
+                         * d[c0:c0 + chunk, None]) * 256).long()
+        ok = ((p >= 0) & (p < 256)).all(dim=-1)
+        pc = p.clamp(0, 255)
+        full = ok & occ_t[pc[..., 0], pc[..., 1], pc[..., 2]]
+        any_ = full.any(dim=1)
+        first = full.float().argmax(dim=1)
+        hitp = p[torch.arange(p.shape[0], device=dev), first]
+        out[c0:c0 + chunk] = torch.where(any_[:, None], hitp, -1)
+        t_out[c0:c0 + chunk] = torch.where(any_, ts[first], float("inf"))
+    return out, t_out
+
+
+def voxel_agreement(o, d, t, v, occ, n):
+    """Per ray, whether the DDA's hit (t, voxel v) agrees with the
+    sampling oracle: both miss, or the same voxel, or (where the samples
+    step over a sliver of a voxel the ray clips) the DDA's voxel is
+    occupied, the ray passes through it (an f64 slab test) and enters it
+    no later than the first occupied sample. Returns (agree, same voxel)."""
+    import torch
+
+    first, t_first = voxel_march(o, d, occ, n)
+    hit = t < 1e30
+    same = (hit == (first[:, 0] >= 0)) & (~hit | (v.long() == first).all(
+        dim=1))
+    vl = v.long().clamp(0, 255)
+    lo = vl.double() / 256
+    t1 = (lo - o.double()) / d.double()
+    t2 = (lo + 1 / 256 - o.double()) / d.double()
+    t_in = torch.minimum(t1, t2).amax(dim=1)
+    t_out = torch.maximum(t1, t2).amin(dim=1)
+    on_ray = (t_in <= t_out + 1e-9) & (t_out > 0)
+    filled = torch.from_numpy(occ).to(o.device)[vl[:, 0], vl[:, 1],
+                                                vl[:, 2]]
+    sliver = (hit & (first[:, 0] >= 0) & filled & on_ray
+              & (t_in <= t_first.double() + 1e-9))
+    return same | sliver, same
+
+
+def foliage_voxels(dev, gpu_line):
+    """The voxel DDA on a full 256^3 VoxelSet: FOLIAGE["vox_W"]^2 camera
+    rays, timed, against the sampling oracle on 2048 rays (the first
+    voxel, hit or miss, agreeing on >= 0.999 of them)."""
+    from tinybvh_tpu_torch import make_rays
+    from tinybvh_tpu_torch.ops.voxel import intersect_voxels
+
+    t0 = time.perf_counter()
+    vs, occ = voxel_scene()
+    vox = vs.freeze(device=dev)
+    set_s = time.perf_counter() - t0
+    W = FOLIAGE["vox_W"]
+    o, d, _, _ = camera_rays(np.zeros(3), np.ones(3), W, W)
+    rays = make_rays(o, d, device=dev)
+    t, _, v = intersect_voxels(vox, rays)
+    secs = wall_s(lambda: intersect_voxels(vox, rays), dev, warmed=True)
+    idx = oracle_subset(rays.o.shape[0], dev)
+    agree, same = voxel_agreement(rays.o[idx], rays.d[idx], t[idx], v[idx],
+                                  occ, FOLIAGE["vox_samples"])
+    share = float(agree.float().mean())
+    hit_rate = float((t < 1e30).float().mean())
+    if share < 0.999 or not 0.0 < hit_rate < 1.0:
+        raise AssertionError(f"foliage voxels: sampling-oracle agreement "
+                             f"{share}, hit rate {hit_rate}")
+    print(f"phase 16 voxels: {int(occ.sum())} voxels in "
+          f"{vs.bricks.shape[0] - 1} bricks (set and frozen in "
+          f"{set_s:.3f} s), {W}x{W} rays in {secs * 1e3:.3f} ms "
+          f"({W * W / secs / 1e6:.3f} MRays/s), hit rate {hit_rate:.4f}, "
+          f"sampling-oracle agreement {share:.5f} on {idx.shape[0]} rays "
+          f"(the same voxel {float(same.float().mean()):.5f}, the rest an "
+          f"earlier voxel clipped between samples) [{gpu_line}]",
+          flush=True)
+
+
+def phase_foliage(bvh, rays, center, extent, gpu_line):
+    """Phase 16, foliage64k: random64k with per-triangle micromaps from
+    bake_omap (leaf_alpha) at S = 8 (pack 2, 4 words a triangle) and S =
+    16 (pack 1, 16 words). The main path, with the launch counts reset
+    just before it and read just after: at each size the camera rays
+    through intersect_packets2 and the shadow segments through
+    is_occluded_packets2 (h100 row budgets, the wavefront retrace with
+    the micromaps at its cap). Gates: zero residual overflow; prim
+    agreement >= 0.999 and the hit-t checksum within 1% against the
+    alpha-aware brute force on 2048 rays, shadow agreement >= 0.999; an
+    all-opaque micromap gives the prims of no micromap on every ray; the
+    micromaps change some rays' hits. Then kernel B's micromap mode
+    against its twin on every captured call (closest hit and any hit at
+    both sizes), its device time beside B's without micromaps on the
+    same rays, and its occupancy; inst8 with micromaps; the sphere
+    queries; the voxel DDA. Returns (kernel entry, launches)."""
+    import torch
+    from tinybvh_tpu_torch import _build
+    from tinybvh_tpu_torch.ops.omap import leaf_align
+    from tinybvh_tpu_torch.traverse import packet2
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    start = time.perf_counter()
+    dev = rays.o.device
+    tun = get_tuning(device=dev)
+    cutoff = 1.0 - 1e-3
+    R = rays.o.shape[0]
+    tables = {S: foliage_tables(bvh, S) for S in FOLIAGE["sizes"]}
+
+    # the main path
+    rec, restore = capture(packet2, ("mt_fused",))
+    reset_launches()
+    try:
+        runs = {S: foliage_traces(bvh, tables[S][2], rays, center, extent,
+                                  tun, cutoff) for S in FOLIAGE["sizes"]}
+    finally:
+        restore()
+    launches = read_launches(dev, ("cull", "mt_fused_omap"),
+                             "the micromap path")
+
+    idx = oracle_subset(R, dev)
+    kern = {}
+    plain_hits, _ = packet2.intersect_packets2(
+        bvh.bvh8, bvh.packet_aux, rays, max_leaves=tun.max_leaves,
+        max_blocks=tun.max_blocks, retrace=True,
+        wf_cap_factor=tun.wf_cap_factor)
+    for S in FOLIAGE["sizes"]:
+        om, leaf, aux = tables[S]
+        hits, ov, shadow, occ, ov2 = runs[S]
+        if bool(ov.any()) or bool(ov2.any()):
+            raise AssertionError(f"foliage S={S}: residual overflow")
+        agree, ratio = omap_gates(hits, rays, idx, bvh.tris, om,
+                                  f"foliage S={S}")
+        occ_ref = omap_oracle(shadow[2].o[idx], shadow[2].d[idx], bvh.tris,
+                              om, t_max=cutoff, any_hit=True)
+        occ_agree = float((occ[idx] == occ_ref).float().mean())
+        if occ_agree < 0.999:
+            raise AssertionError(f"foliage S={S} shadow: alpha-aware oracle "
+                                 f"agreement {occ_agree}")
+        # all-opaque micromaps trace exactly as none (same pack)
+        opaque = packet2.build_packet_aux(
+            bvh.bvh8, omap=leaf_align(torch.ones_like(om), bvh.bvh8))
+        kw = dict(max_leaves=tun.max_leaves, max_blocks=tun.max_blocks,
+                  retrace=True, wf_cap_factor=tun.wf_cap_factor)
+        h_op, _ = packet2.intersect_packets2(bvh.bvh8, opaque, rays, **kw)
+        h_no = (plain_hits if aux.pack == 2 else packet2.intersect_packets2(
+            bvh.bvh8, packet2.build_packet_aux(bvh.bvh8, pack=1), rays,
+            **kw)[0])
+        if not torch.equal(h_op.prim, h_no.prim):
+            raise AssertionError(f"foliage S={S}: all-opaque micromaps "
+                                 f"change {int((h_op.prim != h_no.prim).sum())}"
+                                 " prims")
+        changed = float((hits.prim != plain_hits.prim).float().mean())
+        if changed <= 0.0:
+            raise AssertionError(f"foliage S={S}: the micromaps change no ray")
+        secs = wall_s(lambda: packet2.intersect_packets2(
+            bvh.bvh8, aux, rays, **kw), dev, warmed=True)
+        s_secs = wall_s(lambda: packet2.is_occluded_packets2(
+            bvh.bvh8, aux, shadow[0], shadow[1], cutoff=cutoff, **kw), dev,
+            warmed=True)
+        # the same two calls on the tables without micromaps
+        secs0 = wall_s(lambda: packet2.intersect_packets2(
+            bvh.bvh8, bvh.packet_aux, rays, **kw), dev)
+        s_secs0 = wall_s(lambda: packet2.is_occluded_packets2(
+            bvh.bvh8, bvh.packet_aux, shadow[0], shadow[1], cutoff=cutoff,
+            **kw), dev)
+        bd = breakdown(lambda: packet2.intersect_packets2(
+            bvh.bvh8, aux, rays, **kw), dev, secs * 1e3, retrace=True)
+        print(f"phase 16 foliage S={S}: pack {aux.pack}, {R} rays, hit rate "
+              f"{float((hits.prim >= 0).float().mean()):.4f} (without "
+              f"micromaps {float((plain_hits.prim >= 0).float().mean()):.4f};"
+              f" prims changed on {changed:.4f} of the rays), primary "
+              f"{R / secs / 1e6:.3f} MRays/s, shadow {R / s_secs / 1e6:.3f} "
+              f"MRays/s (occluded {float(occ.float().mean()):.4f}; the same "
+              f"calls without micromaps {R / secs0 / 1e6:.3f} / "
+              f"{R / s_secs0 / 1e6:.3f}), residual overflow 0, alpha-aware "
+              f"oracle prim-agree {agree:.5f} (disagreeing {1 - agree:.5f}) "
+              f"checksum {ratio:.6f} shadow-agree {occ_agree:.5f}, "
+              f"all-opaque == no micromap on every ray; primary: {bd} "
+              f"[{gpu_line}]", flush=True)
+
+    # kernel B's micromap mode against its twin on every captured call
+    calls = rec["mt_fused"]
+    if len(calls) != 2 * len(FOLIAGE["sizes"]) or any(
+            b[12] == 0 for b in calls):
+        raise AssertionError(f"foliage: {len(calls)} micromap resolves "
+                             "captured")
+    for i, b in enumerate(calls):
+        r = omap_kernel_entry(b)
+        kernel_line(16, "mt_fused_omap", r, gpu_line)
+        print(f"  tests {r['tests']}, of them hitting geometrically "
+              f"{r['geo_hits']}", flush=True)
+        if i == 0:
+            kern["mt_fused_omap"] = r
+    # B without micromaps on the same rays, in this run
+    rec0, restore = capture(packet2, ("mt_fused",))
+    try:
+        packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                   max_leaves=tun.max_leaves,
+                                   max_blocks=tun.max_blocks, retrace=False)
+    finally:
+        restore()
+    b0 = rec0["mt_fused"][0]
+    if dev.type == "cuda":
+        ms0 = device_ms(lambda: packet2._mt_fused_cuda(*b0), 20)
+        occ_txt = "; ".join(
+            f"pack {p}: " + occupancy_text(_build.occupancy(
+                "tbvh_mt_fused_omap_occupancy", p)) for p in (2, 1))
+        print(f"phase 16 occupancy: mt_fused_omap {occ_txt}; device time "
+              f"mt_fused_omap S=8 {kern['mt_fused_omap']['device_ms']:.4f} "
+              f"ms, mt_fused without micromaps on the same rays "
+              f"{ms0:.4f} ms [{gpu_line}]", flush=True)
+
+    foliage_tlas(bvh, bvh.tris.cpu().numpy(), tables[8][0], tables[8][1],
+                 gpu_line)
+    foliage_spheres(bvh, bvh.tris.cpu().numpy(), gpu_line)
+    foliage_voxels(dev, gpu_line)
+    print(f"phase 16 foliage64k: {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return kern, launches
+
+
 OCC6 = {"C": ("tbvh_mt_gathered_occupancy",),
         "G": ("tbvh_cull_blocks_occupancy",)}
 OCC11 = {"D-v2": ("tbvh_leaf_resolve_v2_occupancy", 0),
@@ -2333,6 +2882,7 @@ def main(argv=()):
 
     resolves_only = "--resolves" in argv
     render_only = "--render" in argv
+    foliage_only = "--foliage" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2372,6 +2922,9 @@ def main(argv=()):
         return 0
     scene = setup_scene(tris, dev, 640)
     bvh, rays, _, extent, _ = scene
+    if foliage_only:
+        phase_foliage(bvh, rays, scene[2], extent, gpu_line)
+        return 0
     if resolves_only:
         # phases 6 and 11 alone, on the API cull's descriptors
         from tinybvh_tpu_torch.traverse import packet2
@@ -2416,6 +2969,10 @@ def main(argv=()):
     scene_launches = phase_scene16(tris, dev, gpu_line)
     print(f"phases 15 / 15b: {t_render:.1f} s / "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    omap_kern, omap_launches = phase_foliage(bvh, rays, scene[2], extent,
+                                             gpu_line)
+    kern.update(omap_kern)
+    launches.update(mt_fused_omap=omap_launches["mt_fused_omap"])
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2430,7 +2987,8 @@ def main(argv=()):
          **{k: table[name] for k, table in (
              ("tlas_launches", tlas_launches),
              ("render_launches", render_launches),
-             ("scene_launches", scene_launches)) if name in table}}
+             ("scene_launches", scene_launches),
+             ("foliage_launches", omap_launches)) if name in table}}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

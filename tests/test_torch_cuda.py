@@ -167,7 +167,7 @@ def _edge_tiles(args):
     4 an initial t of +inf (a miss of kFar then wins, and zero triangles
     may not be skipped)."""
     (offs, counts, lbg, tmax, ff, t0, gtab, k_cap, tri_blk, rps, pack,
-     any_hit) = args
+     any_hit, omap_s) = args
     counts, lbg, ff, t0 = (x.clone() for x in (counts, lbg, ff, t0))
     kpb = tri_blk // rps
     counts[0] = 0
@@ -177,7 +177,7 @@ def _edge_tiles(args):
     ff[3, :6] = -ff[3, :6]
     t0[4] = float("inf")
     return (offs, counts, lbg, tmax, ff, t0, gtab, k_cap, tri_blk, rps,
-            pack, any_hit)
+            pack, any_hit, omap_s)
 
 
 @pytest.mark.parametrize("tri_blk,pack,any_hit", [
@@ -196,6 +196,66 @@ def test_mt_kernel_edge_tiles_match_plain(scene, monkeypatch, tri_blk, pack,
     assert bool((p[3] == -1).all())
     assert bool((t[4] <= 1e30).all())
     assert bool((p[5:] >= 0).any())
+
+
+def leaf_alpha(prim, u, v):
+    """Opaque inside a disc of the barycentric domain whose radius comes
+    from a hash of the prim id (about half the cells)."""
+    h = (np.asarray(prim, np.int64) * 2654435761) % 4096 / 4096.0
+    return (u - 0.3) ** 2 + (v - 0.3) ** 2 < (0.2 + 0.25 * h) ** 2
+
+
+def _omap_args(bvh, monkeypatch, S, any_hit):
+    """Kernel B's arguments from one packet trace of the camera tiles on
+    tables with S x S micromaps (pack 2 up to S = 15, pack 1 above), and
+    those tables."""
+    from tinybvh_tpu_torch.ops.omap import bake_omap, leaf_align
+
+    om = bake_omap(bvh.tris.shape[0], leaf_alpha, S=S, device="cuda")
+    aux = packet2.build_packet_aux(bvh.bvh8, omap=leaf_align(om, bvh.bvh8))
+    assert aux.omap_s == S and aux.pack == (2 if S <= 15 else 1)
+    o, d = _camera_rays()
+    calls = _capture(monkeypatch, "mt_fused")
+    before = packet2.LAUNCHES["mt_fused_omap"]
+    packet2.intersect_packets2(bvh.bvh8, aux, make_rays(o, d, device="cuda"),
+                               max_leaves=512, retrace=False,
+                               any_hit=any_hit,
+                               t_max=20.0 if any_hit else 1e30)
+    assert packet2.LAUNCHES["mt_fused_omap"] == before + 1
+    (args,) = calls
+    assert args[12] == S
+    return args, aux
+
+
+@pytest.mark.parametrize("S,any_hit", [(4, False), (4, True), (8, False),
+                                       (8, True), (16, False), (16, True)])
+def test_mt_omap_kernel_matches_plain(scene, monkeypatch, S, any_hit):
+    """Kernel B's micromap instantiation on the same offsets and gates as
+    the plain twin, every output bit for bit: pack 2 at S = 4 and 8, pack
+    1 at S = 16, closest hit and any hit."""
+    _, bvh = scene
+    args, _ = _omap_args(bvh, monkeypatch, S, any_hit)
+    ref = packet2._mt_fused_plain(*args)[:5]
+    _assert_equal_outputs(packet2._mt_fused_cuda(*args), ref)
+    assert bool((ref[4] >= 0).any())
+
+
+@pytest.mark.parametrize("S", [8, 16])
+def test_mt_omap_kernel_edge_tiles_match_plain(scene, monkeypatch, S):
+    """Kernel B's micromap instantiation on _edge_tiles's tiles, and on
+    two tiles whose every key points at the zero sentinel segment (they
+    walk only zero rows, which the kernel skips): every output bit for
+    bit."""
+    _, bvh = scene
+    args, aux = _omap_args(bvh, monkeypatch, S, False)
+    args = list(_edge_tiles(args))
+    rps = args[9]
+    offs, counts = args[0].clone(), args[1].clone()
+    offs[5:7] = aux.n_segs * rps
+    counts[5:7] = args[7]
+    args[0], args[1] = offs, counts
+    ref = packet2._mt_fused_plain(*args)[:5]
+    _assert_equal_outputs(packet2._mt_fused_cuda(*args), ref)
 
 
 def test_mt_kernel_many_tiles_match_plain(scene, monkeypatch):

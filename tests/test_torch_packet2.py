@@ -284,15 +284,26 @@ def test_packet_retrace_restores_hits(scene):
                                 dict(retrace=True),
                                 dict(retrace="wavefront")])
 def test_unported_modes_raise(scene, kw):
-    """Opacity micromaps (ROADMAP queue 1, item 5c) are what packet2 still
-    lacks: every mode raises for tables that carry them."""
-    import dataclasses
+    """Of packet2's modes, only fused=False still raises for tables that
+    carry opacity micromaps (kernel C has no micromap test; JAX's
+    fused=False ignores them). The others trace them: with an all-opaque
+    micromap, a 32-leaf budget and the wavefront retrace, their hits
+    equal those of the tables without one."""
+    from tinybvh_tpu_torch.ops.omap import leaf_align
 
     _, _, bvh8, aux = scene
+    opaque = torch.ones((bvh8.leaf_prim.max() + 1, 4, 4), dtype=torch.bool)
+    aux_o = p2.build_packet_aux(bvh8, omap=leaf_align(opaque, bvh8))
     o, d = _camera_rays(T=1)
-    with pytest.raises(NotImplementedError, match="micromaps"):
-        p2.intersect_packets2(bvh8, dataclasses.replace(aux, omap_s=2),
-                              make_rays(o, d, device="cpu"), **kw)
+    rays = make_rays(o, d, device="cpu")
+    if kw.get("fused") is False:
+        with pytest.raises(NotImplementedError, match="micromap"):
+            p2.intersect_packets2(bvh8, aux_o, rays, **kw)
+        return
+    h, ov = p2.intersect_packets2(bvh8, aux_o, rays, max_leaves=32, **kw)
+    ref, _ = p2.intersect_packets2(bvh8, aux, rays, max_leaves=32, **kw)
+    assert not _np(ov).any()
+    assert_hits_match(h.prim, h.t, h.u, h.v, ref.prim, ref.t, ref.u, ref.v)
 
 
 @pytest.mark.parametrize("what", ["retrace", "occluded_retrace",

@@ -299,9 +299,12 @@ def test_build_packet_aux_matches_host_and_jax(deformed):
 
 
 def test_build_packet_aux_omap_raises():
+    """A micromap table that is not aligned with the BVH's leaf rows
+    ((L, 4, S, S), ops.omap.leaf_align) raises."""
     tris = random_tris(64, seed=2)
     b = TBVH(tris, device="cpu")
-    with pytest.raises(NotImplementedError):
+    assert b.bvh8.leaf_prim.shape[0] > 1
+    with pytest.raises(ValueError):
         p2.build_packet_aux(b.bvh8, omap=np.ones((1, 4, 2, 2), bool))
 
 

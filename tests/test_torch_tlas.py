@@ -2,7 +2,7 @@
 on the CPU.
 
 The first eight tests mirror tests/test_tlas.py (all but the voxel BLAS
-test: tlas/voxel_blas.py is not ported) on the port alone, against its
+test, which tests/test_torch_ops.py mirrors) on the port alone, against its
 brute-force oracle and its own engines. The rest hold the port to the
 JAX functions on the same numpy inputs: the TLAS tables (bounds, child,
 inst_inv, inst_mask, inst_root, merged leaves) bit for bit, for the host

@@ -147,15 +147,19 @@ def test_wavefront_overflow_flag_matches_jax():
 
 @pytest.mark.parametrize("what", ["watertight", "baldwin", "omap", "bvh8q"])
 def test_unported_options_raise(what):
+    """The leaf tests and the layout the port lacks raise
+    NotImplementedError; a micromap table not aligned with the leaf rows
+    raises ValueError."""
     tris = random_tris(20, seed=1)
     _, b8 = _both(tris)
     rays = make_rays(*_rays(1, 8), device="cpu")
-    with pytest.raises(NotImplementedError):
+    err = ValueError if what == "omap" else NotImplementedError
+    with pytest.raises(err):
         if what in ("watertight", "baldwin"):
             with use_config(tri_test=what):
                 intersect_wavefront(b8, rays)
         elif what == "omap":
-            intersect_wavefront(b8, rays, omap=torch.ones((1, 4, 2, 2),
-                                                          dtype=torch.bool))
+            intersect_wavefront(b8, rays, omap=torch.ones(
+                (b8.leaf_prim.shape[0] + 1, 4, 2, 2), dtype=torch.bool))
         else:
             intersect_wavefront(object(), rays)

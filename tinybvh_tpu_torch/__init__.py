@@ -12,8 +12,11 @@ engine (traverse/wide.py); the v1 packet engine (traverse/packet.py);
 and the per-instance and bucketed packet engines (tlas/packet.py); the
 scene layer (scene/: meshes, loaders, the animated node graph and its
 per-frame BVH update) and the path tracers (render/: `render`,
-`trace_paths`, `trace_paths_tlas`). See ROADMAP.md for what is still to
-port."""
+`trace_paths`, `trace_paths_tlas`); opacity micromaps (ops/omap.py,
+`build_packet_aux(omap=)`, kernel B's micromap mode, the retraces and
+`build_tlas_packet(omaps=)`); the sphere and custom-primitive queries
+(ops/queries.py), the voxel DDA (ops/voxel.py) and voxel TLAS instances
+(tlas/voxel_blas.py). See ROADMAP.md for what is still to port."""
 
 from tinybvh_tpu_torch.api import BVH, TLAS
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays

@@ -98,8 +98,9 @@ _SIGNATURES = {
     # mt_fused.cu
     "tbvh_mt_fused": [_P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tbvh_mt_fused_occupancy": [_I, _P],
+    "tbvh_mt_fused_omap_occupancy": [_I, _P],
     # mt_gathered.cu
     "tbvh_mt_gathered": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tbvh_mt_gathered_occupancy": [_P],

@@ -19,12 +19,10 @@ import torch
 from tinybvh_tpu_torch.core.rays import Hits, Rays, default_device
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
 
-_SLICE = "ROADMAP queue 1"
-
-
-def _unsupported(what: str, slice_no: int):
-    return NotImplementedError(f"{what} is not ported yet ({_SLICE}, "
-                               f"slice {slice_no})")
+def _unsupported(what: str, jax_module: str):
+    """What the port lacks, named by the JAX module that has it."""
+    return NotImplementedError(f"{what} is not ported yet (JAX "
+                               f"{jax_module})")
 
 
 class BVH:
@@ -44,11 +42,15 @@ class BVH:
         max_leaf = cfg.max_leaf if max_leaf is None else max_leaf
         bins = cfg.bins if bins is None else bins
         if builder != "sah":
-            raise _unsupported(f"builder={builder!r}", 11)
+            raise _unsupported(f"builder={builder!r}",
+                               "api.py BVH.__init__ with builders/"
+                               "{sweep,sbvh,lbvh,binned_jax}.py")
         if layout != "bvh8":
-            raise _unsupported(f"layout={layout!r}", 6)
+            raise _unsupported(f"layout={layout!r}",
+                               "traverse/stack.py and layouts/cwbvh.py")
         if bins != 8:
-            raise _unsupported("the numpy SAH builder (bins != 8)", 11)
+            raise _unsupported("the numpy SAH builder (bins != 8)",
+                               "api.py BVH.__init__ with builders/binned.py")
         self.device = default_device(device)
         if isinstance(tris, torch.Tensor):
             tris = tris.detach().cpu().numpy()
@@ -75,7 +77,8 @@ class BVH:
                                          return_host=True, device="cpu")
         self.leaf_max = int(self._host["count"].max())
         if self.leaf_max > 4:
-            raise _unsupported("the BVH2 layout (leaves over 4 tris)", 6)
+            raise _unsupported("the BVH2 layout (leaves over 4 tris)",
+                               "traverse/stack.py intersect_bvh2")
         if has_cc:
             self._bvh8_host = native.collapse_bvh8_native(
                 self._host, tris_host, combine=cfg.leaf_combine)
@@ -143,7 +146,8 @@ class BVH:
         gate); "lockstep" for engine="lockstep"; "wavefront" otherwise
         (small or ragged batches, per-ray t_max, the CPU)."""
         if engine in ("rayloop", "lockstep2"):
-            raise _unsupported(f"engine={engine!r}", 6)
+            raise _unsupported(f"engine={engine!r}",
+                               "traverse/stack.py and traverse/rayloop.py")
         if engine not in ("auto", "packets", "wavefront", "lockstep"):
             raise ValueError(f"unknown engine {engine!r}")
         if rays.o.device != self.device:

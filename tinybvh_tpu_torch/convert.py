@@ -5,9 +5,11 @@ the exact same tables.
 fields of the JAX `BVH8` and `PacketAux` (any array type numpy can read,
 e.g. jax arrays read back to the host) and returns the port's BVH8 and
 PacketAux on `device`; `from_numpy_bvh8` carries the BVH8 alone,
-`from_numpy_bvh2` a BVH2, `from_numpy_tlas8` a TLAS8 and
-`from_numpy_tlas_packet` a TLASPacket with its BLASes and packet tables.
-It imports nothing of JAX."""
+`from_numpy_bvh2` a BVH2, `from_numpy_tlas8` a TLAS8,
+`from_numpy_tlas_packet` a TLASPacket with its BLASes and packet tables,
+`from_numpy_omap` an opacity micromap table and `from_numpy_voxels` a
+frozen VoxelSet (a dict of arrays). A PacketAux brings its micromaps
+(`omap`) along. It imports nothing of JAX."""
 
 from __future__ import annotations
 
@@ -37,13 +39,25 @@ def from_numpy_bvh2(bvh2_np, device="cpu") -> BVH2:
                 n_nodes=int(np.asarray(bvh2_np.n_nodes)))
 
 
+def from_numpy_omap(omap_np, device="cpu"):
+    """A bool micromap table ((N, S, S) or (L, 4, S, S)), or None."""
+    return None if omap_np is None else _t(omap_np, device).to(torch.bool)
+
+
 def from_numpy_aux(aux_np, device="cpu") -> PacketAux:
     return PacketAux(
         **{k: _t(getattr(aux_np, k), device)
            for k in ("leaf_lo", "leaf_hi", "blk_lo", "blk_hi", "gtab_pad",
                      "center")},
         n_leaf_rows=int(aux_np.n_leaf_rows), pack=int(aux_np.pack),
-        omap_s=int(aux_np.omap_s))
+        omap_s=int(aux_np.omap_s),
+        omap=from_numpy_omap(getattr(aux_np, "omap", None), device))
+
+
+def from_numpy_voxels(vox_np: dict, device="cpu") -> dict:
+    """A frozen VoxelSet's arrays (grid, bricks, top where present,
+    aabb_min, aabb_max) as the port's tensors."""
+    return {k: _t(a, device) for k, a in vox_np.items()}
 
 
 def from_numpy_tables(bvh8_np, aux_np, device="cpu"):

@@ -37,6 +37,17 @@ def moller_trumbore(o, d, v0, e1, e2, t_cur):
     return hit, torch.where(hit, t, torch.full_like(t, BVH_FAR)), u, v
 
 
+def omap_cells(u, v, hit, S: int):
+    """Micromap cells (iu, iv) of barycentrics u, v: floor(u S) and
+    floor(v S) clamped to [0, S - 1] (≙ the engines' omap test, JAX
+    wavefront.py:207-212 and wide.py:159-165). Only pairs that hit are
+    converted; the others' u and v may be out of any range and get cell
+    (0, 0)."""
+    iu = torch.clamp(torch.where(hit, u * S, 0.0).to(torch.int64), 0, S - 1)
+    iv = torch.clamp(torch.where(hit, v * S, 0.0).to(torch.int64), 0, S - 1)
+    return iu, iv
+
+
 TRI_TESTS = ("mt", "watertight", "baldwin")
 
 
@@ -44,8 +55,9 @@ def check_tri_test(tri_test: str) -> None:
     """Raise unless the port has the leaf test `tri_test`."""
     if tri_test in ("watertight", "baldwin"):
         raise NotImplementedError(
-            f"tri_test={tri_test!r} is not ported yet (ROADMAP queue 1, "
-            "item 2)")
+            f"tri_test={tri_test!r} is not ported yet (JAX core/"
+            "intersect.py moller_trumbore_watertight, "
+            "intersect_baldwin_weber)")
     if tri_test not in TRI_TESTS:
         raise ValueError(
             f"tri_test must be one of {TRI_TESTS}, got {tri_test!r}")
@@ -59,6 +71,58 @@ def leaf_intersect(tri_test, o, d, rd, v0, v1, v2, t_cur):
     del rd
     check_tri_test(tri_test)
     return moller_trumbore(o, d, v0, v1 - v0, v2 - v0, t_cur)
+
+
+def tri_aabb(tri):
+    """Per-triangle AABB; (..., 3, 3) -> ((..., 3), (..., 3))."""
+    return tri.amin(dim=-2), tri.amax(dim=-2)
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def sphere_tri_overlap(center, r, v0, v1, v2):
+    """Exact sphere-vs-triangle overlap (≙ JAX core/intersect.py; the
+    closest point on the triangle of BVH::IntersectSphere,
+    tiny_bvh.h:3153-3199, Ericson's Real-Time Collision Detection
+    §5.1.5). center: (..., 3); r: (...,) or a scalar; vertices (..., 3).
+    Returns (...,) bool."""
+    ab = v1 - v0
+    ac = v2 - v0
+    ap = center - v0
+    d1 = _dot(ab, ap)
+    d2 = _dot(ac, ap)
+    bp = center - v1
+    d3 = _dot(ab, bp)
+    d4 = _dot(ac, bp)
+    cp = center - v2
+    d5 = _dot(ab, cp)
+    d6 = _dot(ac, cp)
+
+    vc = d1 * d4 - d3 * d2
+    vb = d5 * d2 - d1 * d6
+    va = d3 * d6 - d5 * d4
+    denom = torch.where(va + vb + vc == 0, 1.0, va + vb + vc)
+    vv = vb / denom
+    ww = vc / denom
+    p = v0 + vv[..., None] * ab + ww[..., None] * ac
+
+    def safe(x):
+        return torch.where(x == 0, 1.0, x)
+
+    # region tests, in the JAX order (the last true one wins)
+    p = torch.where(((vc <= 0) & (d1 >= 0) & (d3 <= 0))[..., None],
+                    v0 + (d1 / safe(d1 - d3))[..., None] * ab, p)
+    p = torch.where(((vb <= 0) & (d2 >= 0) & (d6 <= 0))[..., None],
+                    v0 + (d2 / safe(d2 - d6))[..., None] * ac, p)
+    w2 = (d4 - d3) / safe((d4 - d3) + (d5 - d6))
+    p = torch.where(((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0))[..., None],
+                    v1 + w2[..., None] * (v2 - v1), p)
+    p = torch.where(((d1 <= 0) & (d2 <= 0))[..., None], v0, p)
+    p = torch.where(((d3 >= 0) & (d4 <= d3))[..., None], v1, p)
+    p = torch.where(((d6 >= 0) & (d5 <= d6))[..., None], v2, p)
+    return _dot(center - p, center - p) <= r * r
 
 
 def _chunks(tris, chunk):

@@ -49,6 +49,18 @@
 // best t taken before the current block (NaN propagates, so a NaN gate
 // passes), exactly as on the TPU. Rows are walked in order and only a
 // strictly smaller t replaces the best, so the first minimum wins.
+//
+// Opacity micromaps (omap_s = S > 0; the TPU kernel's omap_s mode,
+// packet2.py:1044-1058) are a second instantiation (OMAP = true), so the
+// main path's kernel is unchanged. Each triangle's S x S cell bits ride
+// in its row, 16 to an f32 word (pack 2: words of A from lane 98, of B
+// from 98 + nw; pack 1: from lane 48, the prim id after them), and the
+// rows are staged up to their last word: 108 floats for S = 8, pack 2,
+// and 68 for S = 16, pack 1. Every pair that hits geometrically takes u
+// and v from the one division the hit already needs, and hits only if
+// the bit of its cell (floor(u S), floor(v S)), clamped to the grid, is
+// set; a transparent hit gives kFar, as a miss. A zero triangle never
+// hits, so skipping it stays exact whatever its words hold.
 #include "common.cuh"
 
 #include <cstdint>
@@ -62,13 +74,26 @@ constexpr int kThreads = kTile / kRays;  // threads per tile
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinCtas = 24 * 32 / kThreads;  // 24 resident warps a SM
 
-template <int PACK>
+template <int PACK, bool OMAP>
 struct RowLayout {
   static constexpr int kStride = PACK == 2 ? 100 : 52;  // floats per row
   static constexpr int kVec = kStride / 4;              // float4 per row
-  static constexpr int kPidA = PACK == 2 ? 96 : 48;
+  // with micromaps the staged stride is set per launch (omap_vec), at
+  // most the whole 128-lane row
+  static constexpr int kVecMax = OMAP ? 32 : kVec;
+  static constexpr int kPidA = PACK == 2 ? 96 : 48;     // without words
   static constexpr int kPidB = 97;
 };
+
+// Words per triangle of an S x S micromap, and the float4 a staged row
+// needs to reach the last of them.
+__host__ __device__ constexpr int omap_words(int s) {
+  return (s * s + 15) / 16;
+}
+__host__ __device__ constexpr int omap_vec(int pack, int s) {
+  return pack == 2 ? (98 + 2 * omap_words(s) + 3) / 4
+                   : (49 + omap_words(s) + 3) / 4;
+}
 
 // Signed MT terms of one triangle (48 lanes at g, read as 12 float4)
 // against RPT rays, in lane order (≙ packet2.py _signed_terms).
@@ -118,10 +143,28 @@ struct Best {
   int w;
 };
 
-// The triangle `tri` (0: A, 1: B) of row `row` (its 48 lanes at g)
-// against the thread's rays: where its t is strictly below a ray's best
-// (rows in order: the first minimum wins), it becomes the best.
-__device__ __forceinline__ void consider(const float4* g,
+// The micromap bit of a pair that hits geometrically: u = u' / det and
+// v = v' / det (as the winner's are computed), the cell (floor(u S),
+// floor(v S)) clamped to [0, S - 1], its bit b = iu S + iv in word b >> 4
+// (≙ packet2.py:1049-1058; twin: packet2.py _omap_opaque).
+__device__ __forceinline__ bool omap_opaque(const SignedTerms& s, float inv,
+                                            const float* words, int omap_s) {
+  const float sf = (float)omap_s;
+  const int iu = min(max(__float2int_rz(__fmul_rn(__fmul_rn(s.us, inv), sf)),
+                         0), omap_s - 1);
+  const int iv = min(max(__float2int_rz(__fmul_rn(__fmul_rn(s.vs, inv), sf)),
+                         0), omap_s - 1);
+  const int bit = iu * omap_s + iv;
+  return (__float2int_rz(words[bit >> 4]) >> (bit & 15)) & 1;
+}
+
+// The triangle `tri` (0: A, 1: B) of row `row` (its 48 lanes at g; with
+// OMAP its micromap words at `words`) against the thread's rays: where
+// its t is strictly below a ray's best (rows in order: the first minimum
+// wins), it becomes the best.
+template <bool OMAP>
+__device__ __forceinline__ void consider(const float4* g, const float* words,
+                                         int omap_s,
                                          const float (&f)[kRays][12],
                                          int row, int tri,
                                          Best (&b)[kRays]) {
@@ -130,12 +173,16 @@ __device__ __forceinline__ void consider(const float4* g,
 #pragma unroll
   for (int q = 0; q < kRays; ++q) {
     float tt = kFar;  // a miss; it still wins over a best t above kFar
-    if (s[q].hit) tt = __fmul_rn(s[q].ts, __fdiv_rn(1.f, s[q].ad));
+    if (s[q].hit) {
+      const float inv = __fdiv_rn(1.f, s[q].ad);
+      if (!OMAP || omap_opaque(s[q], inv, words, omap_s))
+        tt = __fmul_rn(s[q].ts, inv);
+    }
     if (tt < b[q].t) b[q] = Best{tt, 2 * row + tri};
   }
 }
 
-template <int PACK>
+template <int PACK, bool OMAP>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
 mt_fused_kernel(const int* __restrict__ order,
                 const int* __restrict__ offs, const int* __restrict__ counts,
@@ -144,9 +191,14 @@ mt_fused_kernel(const int* __restrict__ order,
                 const float* __restrict__ gtab, float* __restrict__ t_out,
                 int* __restrict__ i_out, float* __restrict__ u_out,
                 float* __restrict__ v_out, int* __restrict__ p_out, int k_cap,
-                int nb, int tri_blk, int rps, int any_hit) {
-  using L = RowLayout<PACK>;
-  __shared__ float4 rows[kChunk * L::kVec];
+                int nb, int tri_blk, int rps, int any_hit, int omap_s) {
+  using L = RowLayout<PACK, OMAP>;
+  __shared__ float4 rows[kChunk * L::kVecMax];
+  // staged float4 per row; micromap word lanes of A and B; prim id lanes
+  const int vec = OMAP ? omap_vec(PACK, omap_s) : L::kVec;
+  const int nw = OMAP ? omap_words(omap_s) : 0;
+  const int wcol_a = PACK == 2 ? 98 : 48, wcol_b = 98 + nw;
+  const int pid_a = PACK == 2 ? L::kPidA : 48 + nw;
   __shared__ float red[2][kWarps];
   const int tile = order[blockIdx.x];
   const int tid = threadIdx.x;
@@ -188,12 +240,12 @@ mt_fused_kernel(const int* __restrict__ order,
     for (int c0 = 0; c0 < sb_rows; c0 += kChunk) {
       const int nrows = min(kChunk, sb_rows - c0);
       __syncthreads();  // the previous chunk is consumed
-      for (int e = tid; e < nrows * L::kVec; e += kThreads) {
-        const int r = e / L::kVec;
+      for (int e = tid; e < nrows * vec; e += kThreads) {
+        const int r = e / vec;
         const int row = sb * tri_blk + c0 + r;
         const int key = row / rps;
         const long long g = (long long)toffs[key] + (row - key * rps);
-        cp_async16(rows + e, gtab4 + g * 32 + (e - r * L::kVec));
+        cp_async16(rows + e, gtab4 + g * 32 + (e - r * vec));
       }
       cp_async_wait_all();
       __syncthreads();  // this chunk (and the CTA max) is visible
@@ -211,7 +263,7 @@ mt_fused_kernel(const int* __restrict__ order,
       if (skip_zero) {
         bool za = lane < nrows, zb = za;
         if (lane < nrows) {
-          const float4* g = rows + lane * L::kVec;
+          const float4* g = rows + lane * vec;
 #pragma unroll
           for (int v = 0; v < 12; ++v) {
             const float4 w = g[v];
@@ -230,12 +282,15 @@ mt_fused_kernel(const int* __restrict__ order,
         zero_b = PACK == 2 ? __ballot_sync(0xffffffffu, zb) : 0u;
       }
       for (int r = 0; r < nrows; ++r) {
-        const float4* g = rows + r * L::kVec;
+        const float4* g = rows + r * vec;
+        const float* gf = reinterpret_cast<const float*>(g);
         const int row = sb * tri_blk + c0 + r;
         // A, then B against the running best: B replaces A only with a
         // strictly smaller t, as min(A, B) and then the best would
-        if (!((zero_a >> r) & 1u)) consider(g, f, row, 0, b);
-        if (PACK == 2 && !((zero_b >> r) & 1u)) consider(g + 12, f, row, 1, b);
+        if (!((zero_a >> r) & 1u))
+          consider<OMAP>(g, gf + wcol_a, omap_s, f, row, 0, b);
+        if (PACK == 2 && !((zero_b >> r) & 1u))
+          consider<OMAP>(g + 12, gf + wcol_b, omap_s, f, row, 1, b);
       }
     }
     if (!nxt) break;
@@ -268,7 +323,7 @@ mt_fused_kernel(const int* __restrict__ order,
       u = __fmul_rn(s[0].us, inv);
       v = __fmul_rn(s[0].vs, inv);
       prim = __float_as_int(reinterpret_cast<const float*>(
-          g)[tri ? L::kPidB : L::kPidA]);
+          g)[tri ? L::kPidB : pid_a]);
     }
     t_out[ray] = b[q].t;
     i_out[ray] = row;
@@ -278,9 +333,12 @@ mt_fused_kernel(const int* __restrict__ order,
   }
 }
 
-const void* kernel_for(int pack) {
-  return pack == 2 ? reinterpret_cast<const void*>(&mt_fused_kernel<2>)
-                   : reinterpret_cast<const void*>(&mt_fused_kernel<1>);
+const void* kernel_for(int pack, bool omap) {
+  if (omap)
+    return pack == 2 ? reinterpret_cast<const void*>(&mt_fused_kernel<2, true>)
+                     : reinterpret_cast<const void*>(&mt_fused_kernel<1, true>);
+  return pack == 2 ? reinterpret_cast<const void*>(&mt_fused_kernel<2, false>)
+                   : reinterpret_cast<const void*>(&mt_fused_kernel<1, false>);
 }
 
 }  // namespace
@@ -288,18 +346,21 @@ const void* kernel_for(int pack) {
 
 // offs (T, k_cap) i32, counts (T,) i32, lbg (T, nb) f32, tmax (T,) f32,
 // ff (T, 12, 256) f32, t0 (T, 256) f32, gtab (rows, 128) f32, 16-byte
-// aligned -> t, u, v (T, 256) f32; idx, prim (T, 256) i32. The tile order
-// lives in T ints taken from the stream's memory pool for the launch.
+// aligned -> t, u, v (T, 256) f32; idx, prim (T, 256) i32. omap_s > 0:
+// the rows carry S x S micromaps (their words must fit the row). The
+// tile order lives in T ints taken from the stream's memory pool for the
+// launch.
 extern "C" int tbvh_mt_fused(const int* offs, const int* counts,
                              const float* lbg, const float* tmax,
                              const float* ff, const float* t0,
                              const float* gtab, float* t, int* idx, float* u,
                              float* v, int* prim, int T, int k_cap, int nb,
                              int tri_blk, int rps, int pack, int any_hit,
-                             void* stream) {
+                             int omap_s, void* stream) {
   if (T <= 0 || nb <= 0 || (pack != 1 && pack != 2) || rps <= 0 ||
       rps > tri_blk || tri_blk % rps || k_cap % (tri_blk / rps) ||
-      reinterpret_cast<std::uintptr_t>(gtab) % 16)
+      reinterpret_cast<std::uintptr_t>(gtab) % 16 || omap_s < 0 ||
+      omap_s > 64 || 4 * tbvh::omap_vec(pack, omap_s) > 128)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   int* order = nullptr;
@@ -311,8 +372,9 @@ extern "C" int tbvh_mt_fused(const int* offs, const int* counts,
   if (err == cudaSuccess) {
     void* args[] = {&order, &offs, &counts, &lbg, &tmax, &ff,
                     &t0,    &gtab, &t,      &idx, &u,    &v,
-                    &prim,  &k_cap, &nb,    &tri_blk, &rps, &any_hit};
-    err = cudaLaunchKernel(tbvh::kernel_for(pack), dim3(T),
+                    &prim,  &k_cap, &nb,    &tri_blk, &rps, &any_hit,
+                    &omap_s};
+    err = cudaLaunchKernel(tbvh::kernel_for(pack, omap_s > 0), dim3(T),
                            dim3(tbvh::kThreads), args, 0, s);
     const cudaError_t last = cudaGetLastError();  // clears a refused launch
     if (err == cudaSuccess) err = last;
@@ -321,9 +383,16 @@ extern "C" int tbvh_mt_fused(const int* offs, const int* counts,
   return (int)(err != cudaSuccess ? err : freed);
 }
 
-// Kernel B's resources for `pack` (see common.cuh kernel_occupancy).
+// Kernel B's resources for `pack`, without and with micromaps (see
+// common.cuh kernel_occupancy).
 extern "C" int tbvh_mt_fused_occupancy(int pack, int* out) {
   if (pack != 1 && pack != 2) return (int)cudaErrorInvalidValue;
-  return tbvh::kernel_occupancy(tbvh::kernel_for(pack), tbvh::kThreads, 0,
-                                out);
+  return tbvh::kernel_occupancy(tbvh::kernel_for(pack, false),
+                                tbvh::kThreads, 0, out);
+}
+
+extern "C" int tbvh_mt_fused_omap_occupancy(int pack, int* out) {
+  if (pack != 1 && pack != 2) return (int)cudaErrorInvalidValue;
+  return tbvh::kernel_occupancy(tbvh::kernel_for(pack, true),
+                                tbvh::kThreads, 0, out);
 }

@@ -74,7 +74,8 @@ def build_binned_native(tris, max_leaf: int = 4, return_host: bool = False,
     make_device=False form. Device BVH2 arrays are not ported yet."""
     if make_device:
         raise NotImplementedError(
-            "device BVH2 arrays are not ported (ROADMAP queue 1, slice 6)")
+            "device BVH2 arrays are not ported (JAX native/__init__.py "
+            "build_binned_native(make_device=True))")
     lib = _load()
     tris = np.ascontiguousarray(np.asarray(tris, np.float32).reshape(-1, 9))
     n = tris.shape[0]

@@ -24,7 +24,14 @@ Tiles whose candidates exceed `rounds`, or that overflow a budget, are
 retraced exactly by the two-level wavefront (tlas/instance.py) when
 `retrace` asks for it; only an overflow of that wavefront stays flagged.
 
-Instances that share a BLAS share its PacketAux."""
+Instances that share a BLAS share its PacketAux.
+
+Opacity micromaps (build_tlas_packet(omaps=), one leaf-aligned table per
+BLAS) make every packet pass run kernel B's micromap test, and the
+escalation passes ("packet" mode) with it. The two-level wavefront takes
+no micromaps (as JAX's, whose retrace then returns hits through
+transparent cells), so with micromaps a retrace by it raises instead:
+choose budgets and rounds that leave no tile to it."""
 
 from __future__ import annotations
 
@@ -74,21 +81,20 @@ def build_tlas_packet(blases, transforms, masks=None, omaps=None,
     blases[0]) or (blas_id, matrix) pairs, as tlas.instance.build_tlas.
     The packet tables are built from the BLASes' tensors
     (build_packet_aux); the prim tables read them back. device: default
-    the BLASes'.
+    the BLASes'. omaps: optional list aligned with blases of (L, 4, S, S)
+    bool micromaps (ops.omap.leaf_align), baked into each BLAS's tables.
 
     As in the JAX package, the instance inverses here have no singular
     guard (build_tlas maps a singular transform to identity with mask 0;
     this one inverts it as it is)."""
-    if omaps is not None:
-        raise NotImplementedError(
-            "opacity micromaps are not ported yet (ROADMAP queue 1, item "
-            "5c)")
     if device is None:
         device = blases[0].bounds.device
     tlas = build_tlas(blases, transforms, masks=masks, device=device)
     mats, blas_ids = _parse_transforms(transforms)
     blas_of = tuple(int(b) for b in blas_ids)
-    auxes = tuple(build_packet_aux(b) for b in blases)
+    auxes = tuple(build_packet_aux(b, omap=None if omaps is None
+                                   else omaps[i])
+                  for i, b in enumerate(blases))
     # prim -> BLAS-space triangle tables (leaves scattered back by prim id)
     tabs, blas_base, roots = [], [], []
     base = 0
@@ -137,11 +143,24 @@ def _fold(better, h: Hits, t_best, u, v, prim, inst, inst_id):
             torch.where(better, inst_id, inst))
 
 
+def _no_omap_retrace(tp: TLASPacket):
+    """Raise where the two-level wavefront would retrace tables that
+    carry micromaps: it has no micromap test."""
+    if any(aux.omap_s for aux in tp.auxes):
+        raise NotImplementedError(
+            "the two-level wavefront retrace with opacity micromaps: JAX "
+            "tlas/instance.py intersect_tlas_wavefront takes no micromaps "
+            "(raise the rounds or the escalation budget, or pass "
+            "retrace=False)")
+
+
 def _tlas_retrace(tp: TLASPacket, rays: Rays, hits: Hits, need, tmax_r,
                   wf_cap_factor: int):
     """The two-level wavefront on the rays of the tiles in `need` (T,)
     (t_max 0 elsewhere), merged over `hits`. Returns (hits, the
-    wavefront's overflow flag); a host sync."""
+    wavefront's overflow flag); a host sync. Raises for tables with
+    micromaps."""
+    _no_omap_retrace(tp)
     ov_ray = torch.repeat_interleave(need, TILE)
     wf, wf_ovf = intersect_tlas_wavefront(
         tp.tlas, rays, t_max=torch.where(ov_ray, tmax_r, 0.0),
@@ -380,6 +399,7 @@ def is_occluded_tlas_packets2(tp: TLASPacket, origin, points,
         max_blocks=max_blocks, any_hit=True)
     occ = (hits.prim >= 0) & (hits.t < cutoff)
     if retrace and bool(overflow.any()):
+        _no_omap_retrace(tp)
         ov_ray = torch.repeat_interleave(overflow, TILE)
         _, wf_occ, wf_ovf = intersect_tlas_wavefront(
             tp.tlas, rays, t_max=torch.where(ov_ray, cutoff, 0.0),

@@ -27,8 +27,13 @@ launches (never plain-twin calls, nor calls a CUDA graph captures).
 Everything around the kernels (tile frusta, the coarse block tier, the
 worklist compaction, block ordering or the full key sort, offset
 pre-decode or the row gather, hit assembly, the packet and wavefront
-retraces) is plain torch, as it is XLA in the JAX package. Not ported
-yet (raise NotImplementedError): opacity micromaps.
+retraces) is plain torch, as it is XLA in the JAX package.
+
+Opacity micromaps (build_packet_aux(omap=)) ride in the rows' padding
+lanes, and kernel B tests them in its own instantiation (LAUNCHES
+"mt_fused_omap"); both retraces test them too. fused=False raises with
+them: kernel C has no micromap test, and the JAX path that resolves with
+it ignores the micromaps.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from tinybvh_tpu_torch import _build
+from tinybvh_tpu_torch.core.intersect import omap_cells
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR, cross, norm
 from tinybvh_tpu_torch.layouts.mbvh import BVH8
@@ -66,7 +72,8 @@ _D_OHI = 31      # 3 lanes: tile origin-box hi
 _D_TCAP = 34     # 1 lane: reach cap (world distance)
 _D_LANES = 35
 
-LAUNCHES = {"cull": 0, "mt_fused": 0, "mt_gathered": 0, "cull_blocks": 0}
+LAUNCHES = {"cull": 0, "mt_fused": 0, "mt_fused_omap": 0, "mt_gathered": 0,
+            "cull_blocks": 0}
 
 
 @dataclass
@@ -76,8 +83,12 @@ class PacketAux:
     leaf_lo/hi (3, Spad) segment boxes (+-FAR padding); blk_lo/hi
     (3, NBpad) union boxes of 128-segment blocks; gtab_pad (rows, 128)
     triangle rows [G_det|G_u|G_v|G_t] (pack=2: [A 0:48 | B 48:96 |
-    pidA 96 | pidB 97]) followed by zero rows (padding leaves and the
-    dead-key sentinel segment); center (3,) subtracted from the rows."""
+    pidA 96 | pidB 97 | words A 98: | words B 98+nw:]; pack=1: [48 feats
+    | nw words | pid 48+nw]) followed by zero rows (padding leaves and
+    the dead-key sentinel segment); center (3,) subtracted from the rows.
+    With micromaps (omap_s = S > 0) each triangle's S x S cell bits fill
+    nw = ceil(S^2 / 16) words, 16 bits to an f32 word, and omap keeps the
+    raw (L, 4, S, S) bool table for the wavefront retrace."""
 
     leaf_lo: torch.Tensor
     leaf_hi: torch.Tensor
@@ -88,6 +99,7 @@ class PacketAux:
     n_leaf_rows: int = 0
     pack: int = 1
     omap_s: int = 0
+    omap: torch.Tensor | None = None
 
     @property
     def n_segs(self):
@@ -104,22 +116,34 @@ def build_packet_aux(bvh8: BVH8, omap=None, pack: int = 2) -> PacketAux:
     (build_packet_aux_host), in its order, written as separate tensor ops
     (sums left to right, no fused multiply-add), so the tables equal it
     bit for bit. The prim ids are bit-cast into their f32 lanes by copies
-    only, which keep the NaN patterns of the -1 ids."""
-    if omap is not None:
-        raise NotImplementedError(
-            "opacity micromaps are not ported yet (ROADMAP queue 1, item "
-            "5c)")
+    only, which keep the NaN patterns of the -1 ids.
+
+    omap: optional (L, 4, S, S) bool opacity micromaps aligned with the
+    leaf rows (ops.omap.leaf_align), baked into the rows' padding lanes;
+    pack falls back to 1 when S > 15 (the words of two triangles and two
+    prim ids no longer fit 32 lanes)."""
     if pack not in (1, 2):
         raise ValueError(f"pack must be 1 or 2, got {pack}")
     lt = bvh8.leaf_tris
     lp = bvh8.leaf_prim
     dev = lt.device
+    L = lt.shape[0]
+    S = nw = 0
+    if omap is not None:
+        omap = torch.as_tensor(omap, device=dev).to(torch.bool)
+        S = omap.shape[-1]
+        nw = (S * S + 15) // 16
+        if (omap.dim() != 4 or tuple(omap.shape[:3]) != (L, 4, S)
+                or 49 + nw > 128):
+            raise ValueError(f"omap must be ({L}, 4, S, S) with S <= 33, "
+                             f"got {tuple(omap.shape)}")
+        if pack == 2 and S > 15:
+            pack = 1
     valid = (lp >= 0)[..., None, None]
     lo = torch.where(valid, lt, BVH_FAR).amin(dim=(1, 2))       # (L, 3)
     hi = torch.where(valid, lt, -BVH_FAR).amax(dim=(1, 2))
     center = (lo.amin(dim=0) + hi.amax(dim=0)) * 0.5
 
-    L = lt.shape[0]
     lpad = -(-L // (LANES * SPAN)) * (LANES * SPAN)
 
     def full(n, val):
@@ -164,17 +188,29 @@ def build_packet_aux(bvh8: BVH8, omap=None, pack: int = 2) -> PacketAux:
                      full(nbpad - nb, BVH_FAR)])
     bhi = torch.cat([hi_p.reshape(nb, LANES, 3).amax(dim=1),
                      full(nbpad - nb, -BVH_FAR)])
+    if omap is not None:
+        # 16 cell bits to a word, exact as f32 (< 2^16)
+        bits = torch.zeros((4 * L, nw * 16), dtype=torch.int32, device=dev)
+        bits[:, :S * S] = omap.reshape(4 * L, S * S).to(torch.int32)
+        shifts = torch.arange(16, dtype=torch.int32, device=dev)
+        wf = (bits.reshape(4 * L, nw, 16) << shifts).sum(
+            dim=2, dtype=torch.int32).to(torch.float32)
+        if pack == 2:
+            gtab_pad[:2 * L, 98:98 + nw] = wf[0::2]
+            gtab_pad[:2 * L, 98 + nw:98 + 2 * nw] = wf[1::2]
+        else:
+            gtab_pad[:4 * L, 48:48 + nw] = wf
     pidf = lp.reshape(4 * L, 1).to(torch.int32).contiguous().view(
         torch.float32)
     if pack == 2:
         gtab_pad[:2 * L, 96:97] = pidf[0::2]
         gtab_pad[:2 * L, 97:98] = pidf[1::2]
     else:
-        gtab_pad[:4 * L, 48:49] = pidf
+        gtab_pad[:4 * L, 48 + nw:49 + nw] = pidf
     return PacketAux(leaf_lo=lo_p.T.contiguous(), leaf_hi=hi_p.T.contiguous(),
                      blk_lo=blo.T.contiguous(), blk_hi=bhi.T.contiguous(),
                      gtab_pad=gtab_pad, center=center, n_leaf_rows=L,
-                     pack=pack)
+                     pack=pack, omap_s=S, omap=omap)
 
 
 def _on_cuda(name, *tensors) -> bool:
@@ -512,28 +548,55 @@ def _features(o_t, d_t):
                      dim=1)
 
 
-def _mt_half(g, f, base, pcol, live):
+def _omap_opaque(g, u, v, hit, wcol, omap_s: int):
+    """The micromap bit of each pair (n, rows, 256) of rows g (n, rows,
+    128) whose words start at lane wcol: cell (floor(u S), floor(v S))
+    clamped to [0, S - 1], bit b = iu S + iv of word b >> 4 (≙ JAX
+    packet2.py:1049-1058; kernel B's omap_opaque). Only pairs that hit
+    geometrically are read: the others' u and v may lie outside any cell."""
+    iu, iv = omap_cells(u, v, hit, omap_s)
+    b = iu * omap_s + iv
+    word = torch.gather(g, 2, wcol + (b >> 4)).to(torch.int64)
+    return ((word >> (b & 15)) & 1) > 0
+
+
+def _mt_half(g, f, base, pcol, live, wcol=0, omap_s: int = 0):
     """MT of the triangles at lanes [base, base+48) of rows g (n, rows,
     128) against feature rows f (n, 12, 256): -> (tt, u, v, prim), each
-    (n, rows, 256), tt = BVH_FAR where there is no hit."""
+    (n, rows, 256), tt = BVH_FAR where there is no hit. With omap_s, a
+    hit also needs the bit of its cell in the words from lane wcol."""
     ad, us, vs, ts, hit = _signed_terms(g, f, base)
     inv_ad = 1.0 / torch.where(ad > 0, ad, 1.0)
+    u, v = us * inv_ad, vs * inv_ad
+    if omap_s:
+        hit = hit & _omap_opaque(g, u, v, hit, wcol, omap_s)
     tt = torch.where(hit & live[..., None], ts * inv_ad, BVH_FAR)
     prim = g[:, :, pcol].contiguous().view(torch.int32)[..., None]
-    return tt, us * inv_ad, vs * inv_ad, prim.expand_as(tt)
+    return tt, u, v, prim.expand_as(tt)
+
+
+def _omap_lanes(pack: int, omap_s: int):
+    """(pid lane A, word lane A, pid lane B, word lane B) of a row."""
+    nw = (omap_s * omap_s + 15) // 16 if omap_s else 0
+    if pack == 2:
+        return 96, 98, 97, 98 + nw
+    return 48 + nw, 48, None, None
 
 
 def _mt_fused_plain(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
-                    tri_blk: int, rps: int, pack: int, any_hit: bool):
+                    tri_blk: int, rps: int, pack: int, any_hit: bool,
+                    omap_s: int = 0):
     """Plain twin of kernel B. offs (T, k_cap) i32 pre-decoded gtab row
     offsets (each key covers rps rows); counts (T,) i32 live keys; lbg
     (T, nb) f32 super-block gates; tmax (T,) f32 any-hit cutoff; ff
     (T, 12, 256) f32 ray features [d, o x d, o, 1, 0, 0]; t0 (T, 256)
-    f32 initial t; gtab (rows, 128) f32. Returns (t, idx, u, v, prim),
-    each (T, 256): idx = super_block * tri_blk + row of the winner, and
-    the super-blocks each tile ran before its gate stopped it ((T,) i64;
-    the kernel's work, which the wrapper drops)."""
+    f32 initial t; gtab (rows, 128) f32; omap_s: the rows' micromap size
+    S (0: none). Returns (t, idx, u, v, prim), each (T, 256): idx =
+    super_block * tri_blk + row of the winner, and the super-blocks each
+    tile ran before its gate stopped it ((T,) i64; the kernel's work,
+    which the wrapper drops)."""
     T = offs.shape[0]
+    pid_a, wcol_a, pid_b, wcol_b = _omap_lanes(pack, omap_s)
     nb = lbg.shape[1]
     kpb = tri_blk // rps
     dev = offs.device
@@ -564,10 +627,10 @@ def _mt_fused_plain(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
             g = gtab[addr]                                  # (n, rows, 128)
             live = (sb * tri_blk + rows)[None, :] < (cnt[a] * rps)[:, None]
             f = ff[ta]
-            tt, uu, vv, pp = _mt_half(g, f, 0, 96 if pack == 2 else 48,
-                                      live)
+            tt, uu, vv, pp = _mt_half(g, f, 0, pid_a, live, wcol_a, omap_s)
             if pack == 2:
-                ttB, uB, vB, pB = _mt_half(g, f, 48, 97, live)
+                ttB, uB, vB, pB = _mt_half(g, f, 48, pid_b, live, wcol_b,
+                                           omap_s)
                 isB = ttB < tt
                 tt = torch.where(isB, ttB, tt)
                 uu = torch.where(isB, uB, uu)
@@ -591,9 +654,10 @@ def _mt_fused_plain(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
 
 
 def _mt_fused_cuda(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
-                   tri_blk: int, rps: int, pack: int, any_hit: bool):
-    """Kernel B launch (csrc/mt_fused.cu); the plain twin's outputs
-    without its work count."""
+                   tri_blk: int, rps: int, pack: int, any_hit: bool,
+                   omap_s: int = 0):
+    """Kernel B launch (csrc/mt_fused.cu; its micromap instantiation
+    when omap_s > 0); the plain twin's outputs without its work count."""
     T = offs.shape[0]
     nb = lbg.shape[1]
     _check("mt offs", offs, torch.int32, (T, k_cap))
@@ -615,17 +679,18 @@ def _mt_fused_cuda(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
     ins = (offs, counts, lbg, tmax, ff, t0, gtab)
     err = lib.tbvh_mt_fused(*[x.data_ptr() for x in ins + tuple(outs)],
                             T, k_cap, nb, tri_blk, rps, pack, int(any_hit),
-                            stream)
+                            omap_s, stream)
     _build.check(err, "tbvh_mt_fused")
-    _count(LAUNCHES, "mt_fused")
+    _count(LAUNCHES, "mt_fused_omap" if omap_s else "mt_fused")
     return tuple(outs)
 
 
 def mt_fused(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
-             tri_blk: int, rps: int, pack: int, any_hit: bool):
+             tri_blk: int, rps: int, pack: int, any_hit: bool,
+             omap_s: int = 0):
     """Kernel B on CUDA tensors, its plain twin on CPU tensors."""
     args = (offs, counts, lbg, tmax, ff, t0, gtab, k_cap, tri_blk, rps,
-            pack, any_hit)
+            pack, any_hit, omap_s)
     if _on_cuda("mt_fused", offs, counts, lbg, tmax, ff, t0, gtab):
         return _mt_fused_cuda(*args)
     return _mt_fused_plain(*args)[:5]
@@ -640,12 +705,9 @@ def mt_resolve_fused(offs, counts, lbg, tmax, o_t, d_t, gtab_flat,
     segment); counts (T,) i32; lbg (T, 1, nb) f32 super-block gates;
     tmax (T, 1) f32; o_t/d_t (T, 3, 256) centered origins/directions;
     gtab_flat (rows, 128) f32 with `pack` triangles per row; t0 optional
-    (T, 256) initial t (default: tmax). Returns (t, idx, u, v, prim),
-    each (T, 256); prim = -1 is the miss signal."""
-    if omap_s:
-        raise NotImplementedError(
-            "opacity micromaps are not ported yet (ROADMAP queue 1, "
-            "item 5c)")
+    (T, 256) initial t (default: tmax); omap_s: the micromap size S of
+    the rows (0: none). Returns (t, idx, u, v, prim), each (T, 256);
+    prim = -1 is the miss signal."""
     T = offs.shape[0]
     if rps is None:
         rps = SEG_ROWS // pack
@@ -660,7 +722,7 @@ def mt_resolve_fused(offs, counts, lbg, tmax, o_t, d_t, gtab_flat,
     return mt_fused(offs.contiguous(), counts.to(torch.int32).contiguous(),
                     lbg.reshape(T, -1).contiguous(), tmax,
                     _features(o_t, d_t).contiguous(), t0.contiguous(),
-                    gtab_flat, k_cap, tri_blk, rps, pack, any_hit)
+                    gtab_flat, k_cap, tri_blk, rps, pack, any_hit, omap_s)
 
 
 # --------------------------------------------------------------------------
@@ -837,12 +899,18 @@ def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
     the near-to-far block order. fused=False gathers the triangle rows
     into (T, K4, 48) and resolves them with kernel C (mt_resolve); it
     needs span_mult = 1 and max_leaves a multiple of 32 (whole 128-row
-    blocks). span_mult: each cull key covers span_mult segments."""
+    blocks), and tables without micromaps. span_mult: each cull key
+    covers span_mult segments.
+
+    Tables with micromaps (aux.omap_s) run kernel B's micromap test, and
+    both retraces test aux.omap."""
     _check_retrace(retrace)
-    if aux.omap_s:
+    if aux.omap_s and not fused:
+        # JAX's fused=False path resolves with kernel C, which has no
+        # micromap test, and returns hits through transparent cells
         raise NotImplementedError(
-            "opacity micromaps are not ported yet (ROADMAP queue 1, item "
-            "5c)")
+            "fused=False with opacity micromaps: kernel C (JAX "
+            "packet2.py _mt_kernel) has no micromap test")
     if not fused and span_mult != 1:
         raise ValueError("fused=False needs span_mult == 1")
     K = max_leaves
@@ -988,7 +1056,7 @@ def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
 
             h2, ov2 = intersect_wavefront(
                 bvh8, rays, t_max=torch.where(ov_ray, tmax_r, 0.0),
-                cap_factor=wf_cap_factor)
+                cap_factor=wf_cap_factor, omap=aux.omap)
         hits = _merge(ov_ray, h2, hits)
         # only tiles that may still be inexact stay flagged
         overflow = overflow & ov2
@@ -1035,7 +1103,7 @@ def _occluded(bvh8: BVH8, aux: PacketAux, rays: Rays, cutoff: float,
         ov_ray = torch.repeat_interleave(overflow, TILE)
         _, wf_occ, wf_ovf = intersect_wavefront(
             bvh8, rays, t_max=torch.where(ov_ray, cutoff, 0.0),
-            cap_factor=wf_cap_factor, any_hit=True)
+            cap_factor=wf_cap_factor, any_hit=True, omap=aux.omap)
         occ = torch.where(ov_ray, wf_occ, occ)
         overflow = overflow & wf_ovf
     return occ, overflow

@@ -24,14 +24,19 @@ child mask, which lists the surviving children pair by pair, lane by
 lane: the slots the JAX scatter-max/cummax map and its rank-to-lane
 lookup produce, in the same order. That `nonzero` is the level loop's
 one host sync (about tree depth, 7-15 syncs per call). And a pair
-without a candidate folds I32MAX into its own ray instead of ray 0."""
+without a candidate folds I32MAX into its own ray instead of ray 0.
+
+Opacity micromaps (omap, (L, 4, S, S) bool aligned with the leaf rows,
+ops.omap.leaf_align) drop a triangle hit whose barycentric cell
+(floor(u S), floor(v S)), clamped to the grid, is transparent (≙ JAX
+wavefront.py:207-212; tiny_bvh.h:8514-8522)."""
 
 from __future__ import annotations
 
 import torch
 
 from tinybvh_tpu_torch.core.intersect import (
-    check_tri_test, leaf_intersect, moller_trumbore, tri_edges,
+    check_tri_test, leaf_intersect, moller_trumbore, omap_cells, tri_edges,
 )
 from tinybvh_tpu_torch.core.rays import Hits, Rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
@@ -67,15 +72,23 @@ def _t_key(t):
     return t.contiguous().view(torch.int32)
 
 
+def check_omap(bvh8, omap):
+    """Raise unless omap is None or (L, 4, S, S) for bvh8's L leaf rows."""
+    if omap is None:
+        return
+    L = bvh8.leaf_tris.shape[0]
+    if (omap.dim() != 4 or tuple(omap.shape[:2]) != (L, 4)
+            or omap.shape[2] != omap.shape[3]):
+        raise ValueError(f"omap must be ({L}, 4, S, S) (ops.omap."
+                         f"leaf_align), got {tuple(omap.shape)}")
+
+
 def _check_inputs(bvh8, omap, tri_test):
-    if omap is not None:
-        raise NotImplementedError(
-            "opacity micromaps are not ported yet (ROADMAP queue 1, item "
-            "5c)")
     if not isinstance(bvh8, BVH8):
         raise NotImplementedError(
             f"{type(bvh8).__name__}: only the f32 BVH8 layout is ported; "
-            "the quantized CWBVH (BVH8Q) is ROADMAP queue 1, slice 11")
+            "the quantized CWBVH (BVH8Q, JAX layouts/cwbvh.py) is not")
+    check_omap(bvh8, omap)
     check_tri_test(tri_test)
 
 
@@ -86,7 +99,8 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
     (R,). Returns (Hits, overflow) or, with any_hit, (Hits, (R,) occluded,
     overflow); overflow (a bool) says pairs beyond cap_factor*R were
     dropped or the tree is deeper than MAX_LEVELS, so hits may be
-    inexact."""
+    inexact. omap: optional (L, 4, S, S) bool opacity micromaps aligned
+    with the leaf rows."""
     if tri_test is None:
         from tinybvh_tpu_torch.config import get_config
 
@@ -105,6 +119,7 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
     # one fused per-pair ray gather: [o | d | rd]
     ray_data = torch.cat([o_all, d_all, rd_all], dim=1)      # (R, 9)
 
+    lanes4 = torch.arange(4, device=dev)[None, :]
     pr = torch.arange(R, device=dev)                         # pair -> ray
     pc = torch.zeros(R, dtype=torch.int32, device=dev)       # root row 0
     pt = torch.zeros(R, dtype=torch.float32, device=dev)     # entry t
@@ -129,8 +144,11 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
 
         # leaf pairs: 4-wide Möller–Trumbore
         lrow = torch.where(is_leaf, -pc - 1, 0).long()
-        hit, th, _, _ = moller_trumbore(o[:, None], d[:, None], v0t[lrow],
-                                        e1t[lrow], e2t[lrow], tb[:, None])
+        hit, th, uu, vv = moller_trumbore(o[:, None], d[:, None], v0t[lrow],
+                                          e1t[lrow], e2t[lrow], tb[:, None])
+        if omap is not None:
+            iu, iv = omap_cells(uu, vv, hit, omap.shape[-1])
+            hit = hit & omap[lrow[:, None], lanes4, iu, iv]
         th = torch.where(hit & is_leaf[:, None], th, BVH_FAR)
         cand_t, lbest = th.min(dim=1)                        # first argmin
         has_cand = cand_t < BVH_FAR

@@ -17,11 +17,13 @@ from __future__ import annotations
 
 import torch
 
-from tinybvh_tpu_torch.core.intersect import moller_trumbore, tri_edges
+from tinybvh_tpu_torch.core.intersect import (
+    moller_trumbore, omap_cells, tri_edges,
+)
 from tinybvh_tpu_torch.core.rays import Hits, Rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
 from tinybvh_tpu_torch.layouts.mbvh import BVH8, EMPTY_SLOT
-from tinybvh_tpu_torch.traverse.wavefront import _slab8
+from tinybvh_tpu_torch.traverse.wavefront import _slab8, check_omap
 
 STACK_DEPTH = 32
 _EMPTY = -(2**31) + 1       # "no current entry"
@@ -62,15 +64,15 @@ def intersect_bvh8(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
                    with_cost: bool = False, omap=None):
     """Closest hit over the 8-wide layout (global prim ids). t_max: scalar
     or (R,). with_cost also returns per-ray cost (1 per node, 4 per
-    leaf)."""
-    if omap is not None:
-        raise NotImplementedError(
-            "opacity micromaps are not ported yet (ROADMAP queue 1, item "
-            "5c)")
+    leaf). omap: optional (L, 4, S, S) bool opacity micromaps aligned with
+    the leaf rows (ops.omap.leaf_align); a triangle hit whose cell bit is
+    0 is transparent and ignored (≙ JAX wide.py:159-165)."""
+    check_omap(bvh8, omap)
     o, d, rd = rays.o, rays.d, rays.rd
     R, dev, t, (v0t, e1t, e2t) = _init(bvh8, rays, t_max)
     rows = torch.arange(R, device=dev)
     lanes8 = torch.arange(8, device=dev)
+    lanes4 = torch.arange(4, device=dev)[None, :]
     cur = torch.zeros(R, dtype=torch.int32, device=dev)     # root row 0
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     stack_e = torch.zeros((STACK_DEPTH + 1, R), dtype=torch.int32,
@@ -116,6 +118,9 @@ def intersect_bvh8(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
         lrow = torch.where(is_leaf, -cur - 1, 0).long()
         hit, th, uh, vh = moller_trumbore(o[:, None], d[:, None], v0t[lrow],
                                           e1t[lrow], e2t[lrow], t[:, None])
+        if omap is not None:
+            iu, iv = omap_cells(uh, vh, hit, omap.shape[-1])
+            hit = hit & omap[lrow[:, None], lanes4, iu, iv]
         th = torch.where(hit & is_leaf[:, None], th, BVH_FAR)
         bt, best = th.min(dim=1)
         improved = bt < t
