@@ -7,6 +7,7 @@
     python3 chip_smoke.py --render     # phases 1-2, 15 and 15b, no JSON
                                        # lines
     python3 chip_smoke.py --foliage    # phases 1-2 and 16, no JSON lines
+    python3 chip_smoke.py --probes     # phases 1-2 and 14, no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -145,9 +146,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      micromap equal to none on every ray, and some rays changed by the
      micromaps; kernel B's micromap mode against its twin on each of the
      four resolves, with its device time beside B's without micromaps on
-     the same rays, and its occupancy; inst8 with micromaps through the
-     bucketed engine (rounds and escalation leaving nothing to the
-     two-level wavefront) against the brute force per instance; 4096
+     the same rays, beside its own with an all-opaque micromap there and
+     at S = 5 (pack 2) and 32 (pack 1) there, and the occupancy of its
+     instantiation at both packs; inst8 with micromaps through
+     the bucketed engine (rounds and escalation leaving nothing to the
+     two-level wavefront) against the brute force per instance, with
+     B's micromap mode against its twin on each of its launches and
+     their device times; 4096
      sphere queries over random64k's BVH2 against brute force on 256;
      the voxel DDA on a full 256^3 VoxelSet (a sphere shell and a height
      field, millions of voxels) with 512x512 rays against a sampling
@@ -2339,8 +2344,8 @@ def phase_probes(bvh, gpu_line, n_plain=20):
 # phase 16: foliage64k, opacity micromaps
 # --------------------------------------------------------------------------
 
-FOLIAGE = dict(sizes=(8, 16), spheres=4096, sphere_oracle=256, vox_W=512,
-               vox_samples=48000)
+FOLIAGE = dict(sizes=(8, 16), other_sizes=(5, 32), spheres=4096,
+               sphere_oracle=256, vox_W=512, vox_samples=48000)
 # fp32 / int operations of the micromap test per pair that hits
 # geometrically (mt_fused.cu omap_opaque): u and v (2 multiplies), times S
 # (2), two conversions and four clamps, the bit index (a multiply-add and
@@ -2483,6 +2488,31 @@ def omap_kernel_entry(b, n_kernel=20, n_plain=3):
     return r
 
 
+def omap_pass_times(calls, n=10):
+    """Kernel B's micromap mode against its twin (torch.equal on every
+    output) on each captured call of `calls`, and each call's device time
+    (a CUDA graph of n calls; None off the card)."""
+    from tinybvh_tpu_torch.traverse import packet2
+
+    out = []
+    for b in calls:
+        if b[12] == 0:
+            raise AssertionError("a resolve without micromaps captured")
+        on_gpu = b[0].is_cuda
+        ref = packet2._mt_fused_plain(*b)[:5]
+        kern = packet2._mt_fused_cuda if on_gpu else packet2.mt_fused
+        equal_twin("mt_fused_omap", kern(*b), ref)
+        out.append(device_ms(lambda: kern(*b), n) if on_gpu else None)
+    return out
+
+
+def omap_ms_text(ms):
+    if not ms or ms[0] is None:
+        return "not measured"
+    return (f"{sum(ms):.4f} ms over {len(ms)} launches ("
+            + ", ".join(f"{x:.4f}" for x in ms) + ")")
+
+
 def foliage_tables(bvh, S):
     """Micromaps of every random64k triangle at S x S (leaf_alpha), aligned
     with the BVH8's leaves, and the packet tables that carry them."""
@@ -2526,6 +2556,7 @@ def foliage_tlas(bvh, tris, om, leaf, gpu_line):
     from tinybvh_tpu_torch.tlas.packet import (
         intersect_tlas_packets2_bucketed, tile_candidates,
     )
+    from tinybvh_tpu_torch.traverse import packet2
 
     dev = bvh.device
     tp, mats, rays, build_s, _, _ = instance_scene(bvh, tris, INST8["n"],
@@ -2536,11 +2567,16 @@ def foliage_tlas(bvh, tris, om, leaf, gpu_line):
     kw = dict(rounds=rounds, max_leaves=INST8["max_leaves"],
               max_blocks=INST8["max_blocks"], retrace="packet",
               retrace_ml=ml, retrace_blocks=INST8["retrace_blocks"])
+    rec, restore = capture(packet2, ("mt_fused",))
     reset_launches()
-    h, ovf = intersect_tlas_packets2_bucketed(tp, rays, **kw)
+    try:
+        h, ovf = intersect_tlas_packets2_bucketed(tp, rays, **kw)
+    finally:
+        restore()
     got = read_launches(dev, ("cull", "mt_fused_omap"), "foliage inst8")
     if bool(ovf.any()):
         raise AssertionError("foliage inst8: residual overflow")
+    omap_ms = omap_pass_times(rec["mt_fused"])
     secs = wall_s(lambda: intersect_tlas_packets2_bucketed(tp, rays, **kw),
                   dev, warmed=True)
     R = rays.o.shape[0]
@@ -2564,8 +2600,9 @@ def foliage_tlas(bvh, tris, om, leaf, gpu_line):
           f"rays, TLAS build {build_s:.3f} s, bucketed rounds {rounds} "
           f"escalation {ml} leaves: {R / secs / 1e6:.3f} MRays/s, hit rate "
           f"{float((h.prim >= 0).float().mean()):.4f}, residual overflow 0, "
-          f"launches {got}, alpha-aware oracle {gates} [{gpu_line}]",
-          flush=True)
+          f"launches {got}, alpha-aware oracle {gates}; kernel B's micromap "
+          f"mode equal to its twin on all {len(omap_ms)} of its launches, "
+          f"device {omap_ms_text(omap_ms)} [{gpu_line}]", flush=True)
 
 
 def foliage_spheres(bvh, tris, gpu_line):
@@ -2831,24 +2868,41 @@ def phase_foliage(bvh, rays, center, extent, gpu_line):
               f"{r['geo_hits']}", flush=True)
         if i == 0:
             kern["mt_fused_omap"] = r
-    # B without micromaps on the same rays, in this run
+    # B without micromaps on the same rays, and B's micromap mode on them
+    # with an all-opaque S = 8 micromap (the same walk as B's) and at the
+    # sizes the main path does not use (pack 2 S = 5, pack 1 S = 32)
+    opaque8 = packet2.build_packet_aux(
+        bvh.bvh8, omap=leaf_align(torch.ones_like(tables[8][0]), bvh.bvh8))
+    others = [foliage_tables(bvh, S)[2] for S in FOLIAGE["other_sizes"]]
     rec0, restore = capture(packet2, ("mt_fused",))
     try:
-        packet2.intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
-                                   max_leaves=tun.max_leaves,
-                                   max_blocks=tun.max_blocks, retrace=False)
+        for aux in (bvh.packet_aux, opaque8, *others):
+            packet2.intersect_packets2(bvh.bvh8, aux, rays,
+                                       max_leaves=tun.max_leaves,
+                                       max_blocks=tun.max_blocks,
+                                       retrace=False)
     finally:
         restore()
-    b0 = rec0["mt_fused"][0]
+    b0, b_op, *b_others = rec0["mt_fused"]
+    *_, n_sb0 = packet2._mt_fused_plain(*b0)
+    tests0 = fused_tests(b0, n_sb0)
+    ms_op, *ms_others = omap_pass_times([b_op, *b_others], 20)
     if dev.type == "cuda":
         ms0 = device_ms(lambda: packet2._mt_fused_cuda(*b0), 20)
         occ_txt = "; ".join(
             f"pack {p}: " + occupancy_text(_build.occupancy(
                 "tbvh_mt_fused_omap_occupancy", p)) for p in (2, 1))
+        others_txt = ", ".join(
+            f"S={b[12]} (pack {b[10]}) {ms:.4f} ms"
+            for b, ms in zip(b_others, ms_others))
         print(f"phase 16 occupancy: mt_fused_omap {occ_txt}; device time "
               f"mt_fused_omap S=8 {kern['mt_fused_omap']['device_ms']:.4f} "
-              f"ms, mt_fused without micromaps on the same rays "
-              f"{ms0:.4f} ms [{gpu_line}]", flush=True)
+              f"ms ({kern['mt_fused_omap']['tests']} tests), mt_fused "
+              f"without micromaps on the same rays {ms0:.4f} ms ({tests0} "
+              f"tests), mt_fused_omap with an all-opaque S=8 micromap on "
+              f"them {ms_op:.4f} ms, and at {others_txt} on them (each "
+              f"equal to its twin) [{gpu_line}]",
+              flush=True)
 
     foliage_tlas(bvh, bvh.tris.cpu().numpy(), tables[8][0], tables[8][1],
                  gpu_line)
@@ -2883,6 +2937,7 @@ def main(argv=()):
     resolves_only = "--resolves" in argv
     render_only = "--render" in argv
     foliage_only = "--foliage" in argv
+    probes_only = "--probes" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2924,6 +2979,9 @@ def main(argv=()):
     bvh, rays, _, extent, _ = scene
     if foliage_only:
         phase_foliage(bvh, rays, scene[2], extent, gpu_line)
+        return 0
+    if probes_only:
+        phase_probes(bvh, gpu_line)
         return 0
     if resolves_only:
         # phases 6 and 11 alone, on the API cull's descriptors

@@ -1524,6 +1524,197 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
     assert (hg.LAUNCHES, ma.LAUNCHES) == before
 
 
+# ---- kernels I and B-omap on constructed cases -----------------------------
+
+ABLATION_EDGE_CASES = ("partial_last", "no_keys", "inf_tmax")
+# inf_tmax: keys a tile, and the tiles whose keys point at the far leaves
+ABLATION_INF_COUNTS = (13, 13, 45, 77, 32, 45, 0, 40)
+ABLATION_INF_FAR_TILES = (0, 2, 4, 5, 7)
+_REAL_LEAVES, _FAR_LEAVES = 128, 32
+
+
+def ablation_edge_inputs(case, seed=0):
+    """(keys (8, 128), counts (8,), lbg (8, 4), tmax (8,), o_t, d_t (8, 3,
+    256), gtab (640, 128)) numpy of one kernel I case: gtab holds 128
+    leaves (4 rows each) of random triangles in front of the rays (mt_rows
+    of _edge_tris in lanes 0:48), then 32 leaves of rows every ray hits at
+    t = 1e31, past BVH_FAR (_far_rows); each tile's keys run over the real
+    leaves from a random base; gates 0, tmax 1e30 unless a case says
+    otherwise.
+    partial_last: counts 40, 33, 95, 7, 64, 128, 1 and 100: last
+      super-blocks live in 8, 1, 31, 7, 32, 32, 1 and 4 of their keys;
+    no_keys: tiles 0, 2, 4 and 6 without a key (their keys still point at
+      leaves), the others with 20, 64, 5 and 128;
+    inf_tmax: tmax = +inf, counts ABLATION_INF_COUNTS; the keys of
+      ABLATION_INF_FAR_TILES point at the far leaves, so every live row
+      of theirs gives 1e31 and the first dead row, where there is one,
+      wins at kFar (tile 0: row 52; tiles 2 and 5: row 180, tile 2 past
+      a gate of +inf, which does not stop a tile whose max best t before
+      its first super-block is +inf, tile 5 past a NaN gate); tile 4 has
+      no dead row (1e31 at row 0); tile 6 no key (+inf); tile 7's key 35
+      points at a real leaf, whose rows give the first t below 1e31 (rows
+      140-143)."""
+    rng = np.random.default_rng(seed)
+    T, k_cap = 8, 128
+    n_real = _REAL_LEAVES * 4
+    gtab = np.zeros(((_REAL_LEAVES + _FAR_LEAVES) * 4, 128), np.float32)
+    gtab[:n_real, :48] = mt_rows(_edge_tris(rng, n_real))
+    gtab[n_real:, :48] = _far_rows(_FAR_LEAVES * 4)
+    o, d = _edge_rays(rng, T)
+    base = rng.integers(0, _REAL_LEAVES, (T, 1))
+    keys = ((base + np.arange(k_cap)) % _REAL_LEAVES).astype(np.int32)
+    lbg = np.zeros((T, k_cap // 32), np.float32)
+    tmax = np.full(T, 1e30, np.float32)
+    if case == "partial_last":
+        counts = (40, 33, 95, 7, 64, 128, 1, 100)
+    elif case == "no_keys":
+        counts = (0, 20, 0, 64, 0, 5, 0, 128)
+    elif case == "inf_tmax":
+        counts = ABLATION_INF_COUNTS
+        tmax[:] = np.inf
+        for t in ABLATION_INF_FAR_TILES:
+            keys[t] = _REAL_LEAVES + np.arange(k_cap) % _FAR_LEAVES
+        keys[7, 35] = 3
+        lbg[2, 1] = np.inf
+        lbg[5, 1] = np.nan
+    else:
+        raise ValueError(case)
+    return (keys, np.array(counts, np.int32), lbg, tmax, o, d, gtab)
+
+
+OMAP_EDGE_CASES = {  # case -> (pack, S)
+    "transparent_inf": (2, 8), "transparent_inf_p1": (1, 16),
+    "zero_words": (2, 8), "zero_words_p1": (1, 16),
+    "s5": (2, 5), "s12": (2, 12), "s12_p1": (1, 12)}
+_OMAP_SEGS = 24
+
+
+def omap_edge_inputs(case, seed=0):
+    """(inputs, kw) of one case of kernel B's micromap mode, numpy: inputs
+    of mt_resolve_fused (offs, counts, lbg (T, 1, nb), tmax (T, 1), o_t,
+    d_t, gtab_flat) and its keywords (k_cap, tri_blk, pack, rps, omap_s,
+    t0 (T, 256)). T = 4 tiles of _edge_rays, tri_blk 128, rps 16 // pack,
+    k_cap two super-blocks of keys (kpb keys each), counts kpb + kpb / 4,
+    2 kpb, kpb / 2 + 1 and kpb + 1 (ragged last super-blocks); 24 segments of random
+    triangles (mt_rows of _edge_tris, prim ids 1000 + triangle) with
+    random micromap words at OMAP_EDGE_CASES's pack and S, then the zero
+    sentinel segment, where dead keys point; each tile's keys run over
+    the segments from a random base; gates 0, tmax and t0 1e30 unless a
+    case says otherwise.
+    transparent_inf[_p1]: segments 0-11 with every word zero (their hits
+      are transparent); tiles 0 and 1 start at t0 = +inf, tile 1's keys
+      all in segments 0-11: there every pair gives kFar and the first
+      (row 0, triangle A) wins;
+    zero_words[_p1]: segments 0-3 hold zero triangles with every word's
+      bits set, and each tile's first four keys point at them; tiles 0
+      and 2 start at t0 = +inf, so their zero rows may not be skipped
+      (row 0 wins at kFar where no real triangle is hit); tile 0 has
+      those four keys alone, tile 2 kpb keys;
+    s5, s12, s12_p1: S = 5 and 12, sizes the smoke's main path does not
+      use."""
+    pack, S = OMAP_EDGE_CASES[case]
+    rng = np.random.default_rng(seed)
+    T, tri_blk = 4, 128
+    rps = 16 // pack
+    kpb = tri_blk // rps
+    k_cap = 2 * kpb
+    nw = (S * S + 15) // 16
+    rows = (_OMAP_SEGS + 1) * rps
+    g = np.zeros((rows, 128), np.float32)
+    n = _OMAP_SEGS * rps
+    pid = np.arange(n * pack, dtype=np.int32).reshape(n, pack) + 1000
+    words = rng.integers(0, 1 << 16, (n, pack, nw)).astype(np.float32)
+    if case.startswith("transparent_inf"):
+        words[:12 * rps] = 0.0
+    for k in range(pack):
+        g[:n, 48 * k:48 * k + 48] = mt_rows(_edge_tris(rng, n))
+    if case.startswith("zero_words"):
+        g[:4 * rps, :48 * pack] = 0.0
+        words[:4 * rps] = 65535.0
+    if pack == 2:
+        g[:n, 96:98] = pid.view(np.float32)
+        g[:n, 98:98 + 2 * nw] = words.reshape(n, 2 * nw)
+    else:
+        g[:n, 48:48 + nw] = words[:, 0]
+        g[:n, 48 + nw] = pid[:, 0].view(np.float32)
+    counts = np.array([kpb + kpb // 4, 2 * kpb, kpb // 2 + 1, kpb + 1],
+                      np.int32)
+    seg = (rng.integers(0, _OMAP_SEGS, (T, 1)) + np.arange(k_cap)) \
+        % _OMAP_SEGS
+    t0 = np.full((T, 256), 1e30, np.float32)
+    if case.startswith("transparent_inf"):
+        seg[1] = np.arange(k_cap) % 12
+        t0[:2] = np.inf
+    if case.startswith("zero_words"):
+        seg[:, :4] = np.arange(4)
+        counts[0], counts[2] = 4, kpb
+        t0[[0, 2]] = np.inf
+    seg[np.arange(k_cap)[None] >= counts[:, None]] = _OMAP_SEGS
+    o, d = _edge_rays(rng, T)
+    ins = dict(offs=(seg * rps).astype(np.int32), counts=counts,
+               lbg=np.zeros((T, 1, 2), np.float32),
+               tmax=np.full((T, 1), 1e30, np.float32), o_t=o, d_t=d,
+               gtab_flat=g)
+    return ins, dict(k_cap=k_cap, tri_blk=tri_blk, pack=pack, rps=rps,
+                     omap_s=S, t0=t0)
+
+
+def omap_edge_args(case, device):
+    """omap_edge_inputs's case as kernel B's arguments (packet2.mt_fused's
+    order, as mt_resolve_fused hands them over) on `device`."""
+    ins, kw = omap_edge_inputs(case)
+    x = {k: torch.from_numpy(v).to(device) for k, v in ins.items()}
+    T = x["offs"].shape[0]
+    return (x["offs"], x["counts"], x["lbg"].reshape(T, -1),
+            x["tmax"].reshape(T),
+            packet2._features(x["o_t"], x["d_t"]).contiguous(),
+            torch.from_numpy(kw["t0"]).to(device), x["gtab_flat"],
+            kw["k_cap"], kw["tri_blk"], kw["rps"], kw["pack"], False,
+            kw["omap_s"])
+
+
+@pytest.mark.parametrize("variant", ma.VARIANTS)
+@pytest.mark.parametrize("case", ABLATION_EDGE_CASES)
+def test_ablation_kernel_edge_cases(case, variant):
+    """Kernel I (it walks only live rows, and gives the first dead row
+    kFar where the live rows' minimum lies above it) against its twin on
+    the edge cases: t bit for bit and rows equal; bf16 by ma.check's
+    tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    *args, gtab = (torch.from_numpy(x).cuda()
+                   for x in ablation_edge_inputs(case))
+    before = ma.LAUNCHES["mt_ablation"]
+    got = ma.ablation(*args, gtab, variant)
+    torch.cuda.synchronize()
+    assert ma.LAUNCHES["mt_ablation"] == before + 1
+    if variant == "bf16":
+        ma.check(args, gtab, variant, got)
+        return
+    t, i, _ = ma._ablation_plain(*args, gtab, variant)
+    assert torch.equal(got[1], i) and torch.equal(_bits(got[0]), _bits(t))
+
+
+@pytest.mark.parametrize("case", OMAP_EDGE_CASES)
+def test_mt_omap_kernel_edge_cases(case):
+    """Kernel B's micromap mode (its bit read only where a hit would win,
+    its zero rows skipped, S = 5 and 12 beside the main path's sizes)
+    against its twin on the edge cases: t, u and v bit for bit, rows
+    and prims equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    args = omap_edge_args(case, "cuda")
+    before = packet2.LAUNCHES["mt_fused_omap"]
+    got = packet2.mt_fused(*args)
+    torch.cuda.synchronize()
+    assert packet2.LAUNCHES["mt_fused_omap"] == before + 1
+    ref = packet2._mt_fused_plain(*args)[:5]
+    for k in (1, 4):
+        assert torch.equal(got[k], ref[k])
+    for k in (0, 2, 3):
+        assert torch.equal(_bits(got[k]), _bits(ref[k]))
+
+
 # ---- the render and scene layers on the card ------------------------------
 
 class _FixedDraws:

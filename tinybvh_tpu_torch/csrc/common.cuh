@@ -49,13 +49,63 @@ __device__ __forceinline__ bool frustum_outside(const float* d,
 }
 
 // Sign-flipped Möller–Trumbore terms of one triangle row against one ray
-// (det >= 0): kernel B's tri_terms in mt_fused.cu computes them as 12-lane
-// dots of the row [G_det|G_u|G_v|G_t] with the ray features f = [d, o x d,
+// (det >= 0): tri_terms below computes them as 12-lane dots of the row [G_det|G_u|G_v|G_t] with the ray features f = [d, o x d,
 // o, 1, 0, 0] in lane order. Twin: packet2.py _signed_terms.
 struct SignedTerms {
   float ad, us, vs, ts;
   bool hit;
 };
+
+// The four 12-lane dots det, u', v', t' of one triangle row (48 lanes at
+// g, read as 12 float4) with RPT rays' features, in lane order, every
+// multiply and add rounded on its own: each float4 read feeds all RPT
+// rays. Kernel I's mathonly variant reads them raw.
+template <int RPT>
+__device__ __forceinline__ void mt_dots(const float4* g,
+                                        const float (&f)[RPT][12],
+                                        float (&acc)[RPT][4]) {
+#pragma unroll
+  for (int q = 0; q < RPT; ++q)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[q][a] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float4 w = g[a * 3 + j];
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        float x = acc[q][a];
+        x = __fadd_rn(x, __fmul_rn(w.x, f[q][4 * j]));
+        x = __fadd_rn(x, __fmul_rn(w.y, f[q][4 * j + 1]));
+        x = __fadd_rn(x, __fmul_rn(w.z, f[q][4 * j + 2]));
+        x = __fadd_rn(x, __fmul_rn(w.w, f[q][4 * j + 3]));
+        acc[q][a] = x;
+      }
+    }
+  }
+}
+
+// Signed MT terms of one triangle against RPT rays: mt_dots, the sign
+// flip and the hit test (≙ packet2.py _signed_terms). Kernels B and I.
+template <int RPT>
+__device__ __forceinline__ void tri_terms(const float4* g,
+                                          const float (&f)[RPT][12],
+                                          SignedTerms (&s)[RPT]) {
+  float acc[RPT][4];
+  mt_dots<RPT>(g, f, acc);
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const float sg = acc[q][0] >= 0.f ? 1.f : -1.f;
+    SignedTerms& r = s[q];
+    r.ad = __fmul_rn(acc[q][0], sg);
+    r.us = __fmul_rn(acc[q][1], sg);
+    r.vs = __fmul_rn(acc[q][2], sg);
+    r.ts = __fmul_rn(acc[q][3], sg);
+    r.hit = r.us >= 0.f && r.vs >= 0.f && __fadd_rn(r.us, r.vs) <= r.ad &&
+            r.ts > 0.f && r.ad > 0.f;
+  }
+}
 
 // Classic Möller–Trumbore of kernels D and E (≙ the expression of the JAX
 // leaf kernels, tinybvh_tpu/traverse/pallas_leaf.py:120-135): one ray
@@ -97,6 +147,10 @@ __device__ __forceinline__ float classic_mt(const float o[3], const float d[3],
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
 }
 
 // Max of v over the 32 lanes of a warp (NaN-propagating).

@@ -54,13 +54,23 @@
 // packet2.py:1044-1058) are a second instantiation (OMAP = true), so the
 // main path's kernel is unchanged. Each triangle's S x S cell bits ride
 // in its row, 16 to an f32 word (pack 2: words of A from lane 98, of B
-// from 98 + nw; pack 1: from lane 48, the prim id after them), and the
-// rows are staged up to their last word: 108 floats for S = 8, pack 2,
-// and 68 for S = 16, pack 1. Every pair that hits geometrically takes u
-// and v from the one division the hit already needs, and hits only if
-// the bit of its cell (floor(u S), floor(v S)), clamped to the grid, is
-// set; a transparent hit gives kFar, as a miss. A zero triangle never
-// hits, so skipping it stays exact whatever its words hold.
+// from 98 + nw; pack 1: from lane 48, the prim id after them). A pair
+// that hits geometrically takes u and v from the one division the hit
+// already needs, and hits only if the bit of its cell (floor(u S),
+// floor(v S)), clamped to the grid, is set; a transparent hit gives kFar,
+// as a miss. A zero triangle never hits, so skipping it stays exact
+// whatever its words hold. What bounds this mode is the main loop's work
+// (it runs at B's rate per test) plus the tests that transparent cells
+// let through the gates. S is a launch argument, so the design keeps
+// what depends on it out of the loop:
+//  - rows are staged up to their last word (omap_vec float4: 27 for S =
+//    8, pack 2; 17 for S = 16, pack 1) at a constant stride of 33 float4,
+//    a warp a row and a lane a float4, each row's table address found
+//    once by one lane (no division by a runtime stride, and every row
+//    address a constant multiple);
+//  - the cell's bit is read, after the dots, only for a pair whose t
+//    would replace the ray's best (or whose kFar would: a best above
+//    kFar), so ~1% of the tests read a word and the rest run B's loop.
 #include "common.cuh"
 
 #include <cstdint>
@@ -74,17 +84,6 @@ constexpr int kThreads = kTile / kRays;  // threads per tile
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinCtas = 24 * 32 / kThreads;  // 24 resident warps a SM
 
-template <int PACK, bool OMAP>
-struct RowLayout {
-  static constexpr int kStride = PACK == 2 ? 100 : 52;  // floats per row
-  static constexpr int kVec = kStride / 4;              // float4 per row
-  // with micromaps the staged stride is set per launch (omap_vec), at
-  // most the whole 128-lane row
-  static constexpr int kVecMax = OMAP ? 32 : kVec;
-  static constexpr int kPidA = PACK == 2 ? 96 : 48;     // without words
-  static constexpr int kPidB = 97;
-};
-
 // Words per triangle of an S x S micromap, and the float4 a staged row
 // needs to reach the last of them.
 __host__ __device__ constexpr int omap_words(int s) {
@@ -95,45 +94,18 @@ __host__ __device__ constexpr int omap_vec(int pack, int s) {
                    : (49 + omap_words(s) + 3) / 4;
 }
 
-// Signed MT terms of one triangle (48 lanes at g, read as 12 float4)
-// against RPT rays, in lane order (≙ packet2.py _signed_terms).
-template <int RPT>
-__device__ __forceinline__ void tri_terms(const float4* g,
-                                          const float (&f)[RPT][12],
-                                          SignedTerms (&s)[RPT]) {
-  float acc[RPT][4];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) acc[q][a] = 0.f;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float4 w = g[a * 3 + j];
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        float x = acc[q][a];
-        x = __fadd_rn(x, __fmul_rn(w.x, f[q][4 * j]));
-        x = __fadd_rn(x, __fmul_rn(w.y, f[q][4 * j + 1]));
-        x = __fadd_rn(x, __fmul_rn(w.z, f[q][4 * j + 2]));
-        x = __fadd_rn(x, __fmul_rn(w.w, f[q][4 * j + 3]));
-        acc[q][a] = x;
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const float sg = acc[q][0] >= 0.f ? 1.f : -1.f;
-    SignedTerms& r = s[q];
-    r.ad = __fmul_rn(acc[q][0], sg);
-    r.us = __fmul_rn(acc[q][1], sg);
-    r.vs = __fmul_rn(acc[q][2], sg);
-    r.ts = __fmul_rn(acc[q][3], sg);
-    r.hit = r.us >= 0.f && r.vs >= 0.f && __fadd_rn(r.us, r.vs) <= r.ad &&
-            r.ts > 0.f && r.ad > 0.f;
-  }
-}
+template <int PACK, bool OMAP>
+struct RowLayout {
+  // float4 staged per row without micromaps: [A 0:48 | B 48:96 | pidA |
+  // pidB | 2 pad] (100 floats) for pack = 2, 52 floats for pack = 1
+  static constexpr int kCopy = PACK == 2 ? 25 : 13;
+  // float4 from one staged row to the next; with micromaps 33, which
+  // holds any row's omap_vec float4 and is odd, so that the zero test's
+  // one-lane-per-row float4 reads fall in 8 distinct bank groups
+  static constexpr int kVec = OMAP ? 33 : kCopy;
+  static constexpr int kPidA = PACK == 2 ? 96 : 48;     // without words
+  static constexpr int kPidB = 97;
+};
 
 // The best hit of one ray: its t and the winner, 2 x row + (1 for
 // triangle B), or -1. u, v and the prim id are read back from the
@@ -175,8 +147,12 @@ __device__ __forceinline__ void consider(const float4* g, const float* words,
     float tt = kFar;  // a miss; it still wins over a best t above kFar
     if (s[q].hit) {
       const float inv = __fdiv_rn(1.f, s[q].ad);
-      if (!OMAP || omap_opaque(s[q], inv, words, omap_s))
-        tt = __fmul_rn(s[q].ts, inv);
+      tt = __fmul_rn(s[q].ts, inv);
+      // a transparent hit gives kFar, as a miss: the cell's bit is read
+      // only where the hit's t or kFar would replace the ray's best
+      if (OMAP && (tt < b[q].t || kFar < b[q].t) &&
+          !omap_opaque(s[q], inv, words, omap_s))
+        tt = kFar;
     }
     if (tt < b[q].t) b[q] = Best{tt, 2 * row + tri};
   }
@@ -193,9 +169,9 @@ mt_fused_kernel(const int* __restrict__ order,
                 float* __restrict__ v_out, int* __restrict__ p_out, int k_cap,
                 int nb, int tri_blk, int rps, int any_hit, int omap_s) {
   using L = RowLayout<PACK, OMAP>;
-  __shared__ float4 rows[kChunk * L::kVecMax];
-  // staged float4 per row; micromap word lanes of A and B; prim id lanes
-  const int vec = OMAP ? omap_vec(PACK, omap_s) : L::kVec;
+  __shared__ float4 rows[kChunk * L::kVec];
+  // float4 copied per row; micromap word lanes of A and B; prim id lanes
+  const int n_copy = OMAP ? omap_vec(PACK, omap_s) : L::kCopy;
   const int nw = OMAP ? omap_words(omap_s) : 0;
   const int wcol_a = PACK == 2 ? 98 : 48, wcol_b = 98 + nw;
   const int pid_a = PACK == 2 ? L::kPidA : 48 + nw;
@@ -240,12 +216,28 @@ mt_fused_kernel(const int* __restrict__ order,
     for (int c0 = 0; c0 < sb_rows; c0 += kChunk) {
       const int nrows = min(kChunk, sb_rows - c0);
       __syncthreads();  // the previous chunk is consumed
-      for (int e = tid; e < nrows * vec; e += kThreads) {
-        const int r = e / vec;
-        const int row = sb * tri_blk + c0 + r;
-        const int key = row / rps;
-        const long long g = (long long)toffs[key] + (row - key * rps);
-        cp_async16(rows + e, gtab4 + g * 32 + (e - r * vec));
+      if (OMAP) {
+        // lane r finds the table row of the chunk's row r once; warp w
+        // then copies rows w, w + kWarps, ..., one float4 a lane
+        int src = 0;
+        if (lane < nrows) {
+          const int row = sb * tri_blk + c0 + lane;
+          const int key = row / rps;
+          src = toffs[key] + (row - key * rps);
+        }
+        for (int r = tid >> 5; r < nrows; r += kWarps) {
+          const long long g = __shfl_sync(0xffffffffu, src, r);
+          if (lane < n_copy)
+            cp_async16(rows + r * L::kVec + lane, gtab4 + g * 32 + lane);
+        }
+      } else {
+        for (int e = tid; e < nrows * L::kCopy; e += kThreads) {
+          const int r = e / L::kCopy;
+          const int row = sb * tri_blk + c0 + r;
+          const int key = row / rps;
+          const long long g = (long long)toffs[key] + (row - key * rps);
+          cp_async16(rows + e, gtab4 + g * 32 + (e - r * L::kCopy));
+        }
       }
       cp_async_wait_all();
       __syncthreads();  // this chunk (and the CTA max) is visible
@@ -263,7 +255,7 @@ mt_fused_kernel(const int* __restrict__ order,
       if (skip_zero) {
         bool za = lane < nrows, zb = za;
         if (lane < nrows) {
-          const float4* g = rows + lane * vec;
+          const float4* g = rows + lane * L::kVec;
 #pragma unroll
           for (int v = 0; v < 12; ++v) {
             const float4 w = g[v];
@@ -282,7 +274,7 @@ mt_fused_kernel(const int* __restrict__ order,
         zero_b = PACK == 2 ? __ballot_sync(0xffffffffu, zb) : 0u;
       }
       for (int r = 0; r < nrows; ++r) {
-        const float4* g = rows + r * vec;
+        const float4* g = rows + r * L::kVec;
         const float* gf = reinterpret_cast<const float*>(g);
         const int row = sb * tri_blk + c0 + r;
         // A, then B against the running best: B replaces A only with a
