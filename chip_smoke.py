@@ -99,7 +99,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      launches), its twin, the one PyTorch call that computes it
      (index_select, gather, take, or for D torch.mm of 10 x the one-hot
      matrix in f32 with t in f32, equal to the kernel; events and a CUDA
-     graph, as the kernel) and its bound; H-D's occupancy. Kernel I, kernel
+     graph, as the kernel) and its bound; the launch floor (an empty
+     kernel's device time) and, for H-A100 and H-C100, the device time of
+     each kernel (and of H-A100's at 0 rounds), each output checked, what
+     sets the pace, and their occupancy; H-D's occupancy.
+     Kernel I, kernel
      B's tile loop in eight variants at 16, 64 and 256 clustered keys a
      tile and at 64 scattered ones (T = 1,600, k_cap 256, the random64k
      packet tables): each variant's time, device time, twin and bound,
@@ -2228,12 +2232,84 @@ def library_call(form, args):
     return None
 
 
+def redesign_calls(form, args):
+    """H form A100 or C100 on `args`: {label: (zero-argument callable,
+    expected output)}, the wrapper's call and, for A100, its kernel at 0
+    rounds through the C entry (its fixed part: loads and stores). Each
+    call writes a buffer of its own."""
+    import torch
+    from tinybvh_tpu_torch.probes import gather
+
+    t, i = args
+    ref = gather.FORMS[form].plain(t, i)
+    if form == "C100":
+        return {"staged": (lambda: gather.sum_gather(t, i), ref)}
+
+    def zero_rounds():
+        out = torch.empty_like(t)
+        gather._launch("chain_gather", "tbvh_gather_chain", t, i, out, 0)
+        return out
+
+    return {"doubling": (lambda: gather.chain_gather(t, i), ref),
+            "doubling at 0 rounds": (zero_rounds, t)}
+
+
+def phase_redesigns(h, kern, gpu_line, n=3):
+    """H-A100 and H-C100 against the launch floor: the device time (one
+    CUDA graph of N_TIMED launches) of an empty kernel and of each call of
+    redesign_calls, n rounds in turns, each output checked; what sets the
+    pace of the wrapper's form: the floor, its fixed part above the floor
+    (A100) and the rest; then the two kernels' resources."""
+    import torch
+    from tinybvh_tpu_torch import _build
+    from tinybvh_tpu_torch.probes import gather
+
+    dev = h["A100"]["out"].device
+    floor = gather.launch_floor_ms(dev)
+    print(f"phase 14 launch floor: an empty kernel (one warp) device "
+          f"{floor:.6f} ms [{gpu_line}]", flush=True)
+    for form in ("A100", "C100"):
+        calls = redesign_calls(form, h[form]["args"])
+        times = {k: [] for k in calls}
+        for k in [k for _ in range(n) for k in calls]:
+            fn, expected = calls[k]
+            if not torch.equal(fn(), expected):
+                raise AssertionError(f"gather_{form} {k}: wrong output")
+            times[k].append(device_ms(fn, gather.N_TIMED))
+        k = kern[f"gather_{form}"]
+        main = "doubling" if form == "A100" else "staged"
+        new = min(times[main])
+        if form == "A100":
+            fixed = min(times[f"{main} at 0 rounds"])
+            parts = {"the launch floor": floor,
+                     "its fixed part": fixed - floor, "its rounds": new - fixed}
+        else:
+            parts = {"the launch floor": floor,
+                     "its staging and rounds": new - floor}
+        print(f"phase 14 redesign gather_{form}: device ms " + "; ".join(
+            f"{lab} " + " / ".join(f"{x:.6f}" for x in ts)
+            for lab, ts in times.items())
+              + f"; bound {k['bound_ms']:.6f} ms ({k['bound_by']}), launch "
+              f"floor {floor:.6f} ms; {main} {new / floor:.2f}x the floor, "
+              "paced by " + ", ".join(f"{lab} {ms:.6f}" for lab, ms in
+                                       sorted(parts.items(),
+                                              key=lambda kv: -kv[1]))
+              + f" [{gpu_line}]", flush=True)
+    for entry, form in (("tbvh_gather_chain_occupancy", "A100"),
+                        ("tbvh_gather_sum_occupancy", "C100")):
+        print(f"phase 14 occupancy of kernel H-{form}: "
+              + occupancy_text(_build.occupancy(entry)) + f" [{gpu_line}]",
+              flush=True)
+
+
 def phase_probes(bvh, gpu_line, n_plain=20):
     """Phase 14: the probes' drivers (kernels H and I), each kernel against
     its twin, launches counted over the drivers' runs; each H form and I
     variant with its time, device time, twin's time, bound and (H) the
-    library call's time; kernel I's split of B's tile loop. Returns the
-    kernel entries and launches of the JSON line."""
+    library call's time; H-A100 and H-C100 against the launch floor
+    (phase_redesigns); kernel I's split of
+    B's tile loop. Returns the kernel entries and launches of the JSON
+    line."""
     import torch
     from tinybvh_tpu_torch import _build
     from tinybvh_tpu_torch.probes import gather, mt_ablation
@@ -2291,6 +2367,7 @@ def phase_probes(bvh, gpu_line, n_plain=20):
               f"({k['bound_by']}) [{gpu_line}]", flush=True)
 
     if dev.type == "cuda":
+        phase_redesigns(h, kern, gpu_line)
         print("phase 14 occupancy of kernel H-D: " + occupancy_text(
             _build.occupancy("tbvh_gather_onehot_occupancy"))
             + f" [{gpu_line}]", flush=True)

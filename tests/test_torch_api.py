@@ -21,6 +21,7 @@ from tinybvh_tpu_torch.core.intersect import (  # noqa: E402
     brute_force_any, brute_force_closest,
 )
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1429,6 +1429,125 @@ def test_onehot_kernel_slab_edges(N):
     assert torch.equal(torch.mm(oh10, t.float()), got)
 
 
+# H-A100 and H-C100 off the probes' shapes: the chain at several round
+# counts on constructed index maps, the sum where its wrap is crossed at
+# different steps (tests/test_torch_probes.py holds the twins' rules to
+# numpy on the same cases)
+CHAIN_ROUNDS = (0, 1, 2, 3, 7, 64, 100, 101)
+CHAIN_MAPS = ("random", "identity", "cycle128", "fixed_points")
+SUM_EDGES = (0, 411, 412, 511)   # 511: the wrap at step 1; 412: none
+
+
+def chain_map(case, seed=0):
+    """An (8, 128) int32 index map, each row its own: uniform at random;
+    the identity; one cycle through all 128 lanes; or half of the lanes
+    fixed points and the rest a random map into the row."""
+    rng = np.random.default_rng(seed)
+    F, W = hg.F, hg.W
+    if case == "random":
+        return rng.integers(0, W, (F, W), dtype=np.int32)
+    if case == "identity":
+        return np.tile(np.arange(W, dtype=np.int32), (F, 1))
+    if case == "cycle128":
+        m = np.empty((F, W), np.int32)
+        for f in range(F):
+            order = rng.permutation(W)
+            m[f, order] = np.roll(order, -1)
+        return m
+    m = rng.integers(0, W, (F, W), dtype=np.int32)
+    fixed = rng.random((F, W)) < 0.5
+    m[fixed] = np.broadcast_to(np.arange(W, dtype=np.int32), (F, W))[fixed]
+    return m
+
+
+def sum_inputs(edge, seed=0):
+    """C100's (512, 128) table and an (8, 128) index block with every
+    other lane at `edge`, the rest uniform."""
+    rng = np.random.default_rng(seed)
+    t = rng.random((512, hg.W), dtype=np.float32)
+    i = rng.integers(0, 512, (hg.F, hg.W), dtype=np.int32)
+    i[:, ::2] = edge
+    return t, i
+
+
+def _gather_loop(t, idx, rounds, dim):
+    """`rounds` chained gathers of t by idx along dim 1 (the chain's rule)
+    or, along dim 0, the sum of t at idx + s mod N for s < rounds (the
+    sum's), in order of s from zero."""
+    if dim == 1:
+        acc = t
+        for _ in range(rounds):
+            acc = acc.gather(1, idx.long())
+        return acc
+    acc = torch.zeros(idx.shape, dtype=torch.float32, device=t.device)
+    for s in range(rounds):
+        acc = acc + t.gather(0, ((idx + s) % t.shape[0]).long())
+    return acc
+
+
+@pytest.mark.parametrize("rounds", CHAIN_ROUNDS)
+@pytest.mark.parametrize("case", CHAIN_MAPS)
+def test_chain_kernel_at_any_rounds(case, rounds):
+    """H-A100 through its C entry's `rounds`: equal to `rounds` chained
+    torch.gather calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    rng = np.random.default_rng(rounds)
+    t, i = _cuda(rng.random((hg.F, hg.W), dtype=np.float32),
+                 chain_map(case))
+    out = torch.empty_like(t)
+    hg._launch("chain_gather", "tbvh_gather_chain", t, i, out, rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _gather_loop(t, i, rounds, 1))
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 100])
+@pytest.mark.parametrize("edge", SUM_EDGES)
+def test_sum_kernel_wraps_and_rounds(edge, rounds):
+    """H-C100 at the probe's R = 100 (the staged path) and at 0 and 1 (the
+    general one), with lanes whose rows wrap at different steps: equal to
+    the twin's rule at `rounds`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    t, i = _cuda(*sum_inputs(edge))
+    out = torch.empty(i.shape, dtype=torch.float32, device="cuda")
+    hg._launch("sum_gather", "tbvh_gather_sum", t, i, out, hg.F, hg.W, 512,
+               rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _gather_loop(t, i, rounds, 0))
+    if rounds == hg.ROUNDS:
+        assert torch.equal(out, hg._sum_plain(t, i))
+
+
+@pytest.mark.parametrize("N,Wt,S,rounds", [
+    (64, 128, 5, 100), (512, 100, 5, 37), (1500, 128, 5, 100),
+    (1024, 8, 5, 300), (512, 16, 40, 100)])
+def test_sum_kernel_other_shapes(N, Wt, S, rounds):
+    """H-C100 off the staged path's shapes, through the general path:
+    rounds exceeding N (several wraps), a width no multiple of 8, N past
+    the staged path's 1,024 rows, rounds other than 100 on a one-slice
+    table, and more outputs a slice than a staged CTA has threads: equal
+    to the twin's rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    rng = np.random.default_rng(N + Wt)
+    t, i = _cuda(rng.random((N, Wt), dtype=np.float32),
+                 rng.integers(0, N, (S, Wt), dtype=np.int32))
+    out = torch.empty(i.shape, dtype=torch.float32, device="cuda")
+    hg._launch("sum_gather", "tbvh_gather_sum", t, i, out, S, Wt, N, rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _gather_loop(t, i, rounds, 0))
+
+
+def test_launch_floor_is_measured():
+    """The empty kernel launches and its device time is above zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    before = dict(hg.LAUNCHES)
+    assert hg.launch_floor_ms("cuda") > 0.0
+    assert hg.LAUNCHES == before
+
+
 def test_probe_launches_captured_in_a_graph_are_not_counted(scene,
                                                             gather_inputs):
     """A call captured into a CUDA graph is recorded, not launched: the
@@ -1521,6 +1640,13 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
         hg.onehot_gather(t[:, :64].contiguous(), idx)
     with pytest.raises(ValueError):   # N a multiple of 16
         hg.onehot_gather(t[:2040].contiguous(), idx)
+    t, i = gather_inputs["C100"]
+    with pytest.raises(RuntimeError):  # rounds >= 0 at the C entries
+        hg._launch("sum_gather", "tbvh_gather_sum", t, i,
+                   torch.empty(i.shape, device="cuda"), hg.F, hg.W, 512, -1)
+    with pytest.raises(RuntimeError):
+        hg._launch("chain_gather", "tbvh_gather_chain", *gather_inputs["A100"],
+                   torch.empty((hg.F, hg.W), device="cuda"), -1)
     assert (hg.LAUNCHES, ma.LAUNCHES) == before
 
 

@@ -45,6 +45,7 @@ from tinybvh_tpu_torch.traverse.wavefront import (  # noqa: E402
     intersect_wavefront, is_occluded_wavefront,
 )
 from tinybvh_tpu_torch.traverse.wide import intersect_bvh8  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -38,6 +38,7 @@ from tinybvh_tpu_torch.ops import queries as pq  # noqa: E402
 from tinybvh_tpu_torch.ops import voxel as pvx  # noqa: E402
 from tinybvh_tpu_torch.tlas import voxel_blas as pvb  # noqa: E402
 from tinybvh_tpu_torch.traverse.stack import pack_tris  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

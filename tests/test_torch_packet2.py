@@ -33,6 +33,7 @@ from tinybvh_tpu_torch.traverse import packet2 as p2  # noqa: E402
 from tinybvh_tpu_torch.traverse.packet import _tile_planes  # noqa: E402
 from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront  # noqa: E402
 from test_torch_cuda import far_hit_rows  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -5,6 +5,12 @@ probe body under pl.pallas_call(..., interpret=True) on the probe
 module's own arrays, exactly (assert_array_equal); `kernel2`, nested in
 the probe's main(), against the probe's own numpy expression.
 
+What the redesigned H-A100 and H-C100 kernels rely on, against numpy:
+R chained lane gathers are the row's index map composed R times (the
+doubling kernel composes maps only), and the C100 twin is the sum added
+one row at a time in float32, on the constructed index maps and wrap
+cases of tests/test_torch_cuda.py.
+
 Kernel I (tinybvh_tpu_torch/probes/mt_ablation.py): the twin against
 benchmarks/mt_ablation_probe.py::_ablation_kernel, called as the probe's
 pallas_call with interpret=True, at T = 8 tiles, k_cap 64, on
@@ -37,6 +43,9 @@ from tinybvh_tpu_torch import BVH  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
 from tinybvh_tpu_torch.probes import gather as hg  # noqa: E402
 from tinybvh_tpu_torch.probes import mt_ablation as ma  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
+from test_torch_cuda import (  # noqa: E402
+    CHAIN_MAPS, CHAIN_ROUNDS, SUM_EDGES, chain_map, sum_inputs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, K_CAP, KPT = 8, 64, 40
@@ -136,6 +145,48 @@ def test_gather_driver_on_cpu():
     t, idx = res["D8192"]["args"]
     assert t.dtype == torch.bfloat16 and t.shape == (8192, 96)
     assert torch.equal(res["D8192"]["out"], 10 * t[idx.long()].float())
+
+
+def _power_map(m, rounds):
+    """Each row's index map composed `rounds` times, lane by lane."""
+    r = np.broadcast_to(np.arange(m.shape[1]), m.shape).copy()
+    for _ in range(rounds):
+        r = np.take_along_axis(m, r, 1)
+    return r
+
+
+REDESIGN_CASES = ([f"chain-{c}-{r}" for c in CHAIN_MAPS for r in CHAIN_ROUNDS]
+                  + [f"sum-{e}" for e in SUM_EDGES])
+
+
+@pytest.mark.parametrize("case", REDESIGN_CASES)
+def test_redesign_identities(case):
+    """What the A100 and C100 kernels rely on, against numpy. Chain: R
+    chained gathers along dim 1 (at R = ROUNDS the twin itself) equal
+    t[f, i^R(l)], i^R the row's map composed R times (the doubling kernel
+    composes maps only and reads t once). Sum: the twin equals the sum of
+    t[(i + s) % 512, l] added one s at a time in float32 from zero, on
+    lanes whose rows wrap at different steps."""
+    kind, *rest = case.split("-")
+    if kind == "chain":
+        m, rounds = chain_map(rest[0]), int(rest[1])
+        t = np.random.default_rng(rounds).random(m.shape, dtype=np.float32)
+        ref = np.take_along_axis(t, _power_map(m, rounds), 1)
+        tt, mt = torch.from_numpy(t), torch.from_numpy(m)
+        if rounds == hg.ROUNDS:
+            got = hg._chain_plain(tt, mt)
+        else:
+            got = tt
+            for _ in range(rounds):
+                got = got.gather(1, mt.long())
+    else:
+        t, i = sum_inputs(int(rest[0]))
+        lanes = np.broadcast_to(np.arange(t.shape[1]), i.shape)
+        ref = np.zeros(i.shape, np.float32)
+        for s in range(hg.ROUNDS):
+            ref = ref + t[(i + s) % t.shape[0], lanes]
+        got = hg._sum_plain(torch.from_numpy(t), torch.from_numpy(i))
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_probe_inputs_need_a_card_or_cpu(monkeypatch):

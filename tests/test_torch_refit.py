@@ -45,6 +45,7 @@ from tinybvh_tpu_torch.layouts.mbvh import collapse_bvh2  # noqa: E402
 from tinybvh_tpu_torch.traverse import packet2 as p2  # noqa: E402
 from tinybvh_tpu_torch.traverse.stack import pack_tris  # noqa: E402
 from tinybvh_tpu_torch.traverse.wide import intersect_bvh8  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -38,6 +38,7 @@ from tinybvh_tpu_torch.render import textures as ptex  # noqa: E402
 from tinybvh_tpu_torch.scene.graph import Light  # noqa: E402
 from tinybvh_tpu_torch.traverse.packet2 import build_packet_aux  # noqa: E402
 from tests.torch_parity import JaxDraws, _np, _quad  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 RTOL, ATOL = 1e-3, 1e-4
 

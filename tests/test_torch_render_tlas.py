@@ -43,6 +43,7 @@ from tinybvh_tpu_torch.scene.graph import Light  # noqa: E402
 from tinybvh_tpu_torch.tlas.instance import merge_leaf_attrs  # noqa: E402
 from tinybvh_tpu_torch.tlas.packet import build_tlas_packet  # noqa: E402
 from tests.torch_parity import JaxDraws, _np, _quad  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

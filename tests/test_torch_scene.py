@@ -37,6 +37,7 @@ from tinybvh_tpu_torch.scene import graph as pg  # noqa: E402
 from tinybvh_tpu_torch.scene import mesh as pm  # noqa: E402
 from tinybvh_tpu_torch.tlas.packet import intersect_tlas_packets2  # noqa: E402
 from tests.torch_parity import JaxDraws, _np  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

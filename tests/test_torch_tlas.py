@@ -28,6 +28,7 @@ from tinybvh_tpu_torch.core import vecmath as pvm  # noqa: E402
 from tinybvh_tpu_torch.core.intersect import brute_force_closest  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris, sphere_tris  # noqa: E402
 from tinybvh_tpu_torch.tlas import instance as pi  # noqa: E402
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

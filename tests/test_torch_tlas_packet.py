@@ -34,6 +34,7 @@ from tinybvh_tpu_torch.tlas.packet import (  # noqa: E402
     intersect_tlas_packets2_bucketed, intersect_tlas_packets2_sorted,
     is_occluded_tlas_packets2, scene_bounds, tile_candidates,
 )
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

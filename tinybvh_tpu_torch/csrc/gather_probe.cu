@@ -14,16 +14,21 @@
 //   sub    o[s, l] = t[i[s, l], l] (C): the (512, 128) table (256 KB, more
 //          than one SM's shared memory) read from device memory;
 //   flat   o = flat[i] (E);
-//   chain  100 rounds of A on a shared-memory accumulator, a barrier
-//          between rounds (each round reads the whole previous one);
+//   chain  A composed 100 times (A100): o[f, l] = t[f, i^100(l)], the
+//          index map composed by doubling in shared memory, one warp a
+//          row (see below);
 //   sum    acc = sum over s of t[(i + s) % N, l] (C100), added in order of
 //          s from zero with __fadd_rn, so it equals the twin bit for bit;
+//          at the probe's shape its table's 8-column slices staged in
+//          shared memory, its 100 loads issued before the adds (see below);
 //   onehot (D) ten products onehot(idx) @ t on the tensor cores (wgmma,
 //          bf16 in, f32 accumulation), see below.
 //
 // What bounds them on this card: every table is at most 1.6 MB, so the
 // bytes take well under a microsecond and each launch is bound by its
-// fixed cost (launch, one wave, the chain's 100 barriers).
+// fixed cost (launch, one wave) plus its dependent chain: A100's
+// composition steps, C100's 100 dependent adds. `tbvh_gather_empty`
+// times the launch alone.
 //
 // The one-hot form (D) is the TPU's workaround for a gather, kept to time
 // the method: o (M, F) f32 = sum over 10 reps of onehot(idx) (M, N) @ t
@@ -114,38 +119,160 @@ __global__ void flat_take(const float* __restrict__ flat,
   if (e < n) o[e] = flat[i[e]];
 }
 
-// `rounds` chained lane gathers of an (8, 128) accumulator by the same
-// indices: acc[f, l] <- acc[f, i[f, l]], one thread per element.
-__global__ void __launch_bounds__(kCta)
+// ---- A100: `rounds` chained lane gathers of an (8, 128) block ----------
+//
+// acc <- t, then `rounds` times acc[f, l] <- acc[f, i[f, l]], with t and i
+// fixed: o[f, l] = t[f, i^R(l)], R = rounds, where i^R is row f's index
+// map composed R times. Only indices are composed and one float is read,
+// so any order of composition gives the twin's bits. One warp a row (a
+// CTA each), 4 lanes of the row a thread; the row's map and values sit in
+// shared memory, and a warp needs no block-wide barrier. The map is
+// composed by doubling: r <- id, p <- i; for each bit of R from the
+// lowest, r <- p o r where the bit is set, then p <- p o p: 6 squarings
+// and 3 applications for R = 100 (64 + 32 + 4), each a shared load of the
+// thread's own 4 lanes and, for p, a store behind __syncwarp (p's two
+// halves alternate, so a squaring never overwrites what another lane
+// still reads). Each lane following its own chain of R dependent shared
+// loads instead took twice as long at R = 100 (PERF.md, Findings).
+constexpr int kChainK = kW / 32;  // lanes of a row a thread holds
+
+__global__ void __launch_bounds__(32)
 chain_gather(const float* __restrict__ t, const int* __restrict__ i,
              float* __restrict__ o, int rounds) {
-  __shared__ float acc[2][kCta];
-  const int e = threadIdx.x;
-  const int src = (e / kW) * kW + i[e];
-  acc[0][e] = t[e];
-  __syncthreads();
-  int cur = 0;
-  for (int r = 0; r < rounds; ++r) {
-    acc[cur ^ 1][e] = acc[cur][src];
-    cur ^= 1;
-    __syncthreads();
+  __shared__ int pw[2][kW];
+  __shared__ float row[kW];
+  const int lane = threadIdx.x;
+  const int base = blockIdx.x * kW;
+  int r[kChainK], p[kChainK];
+#pragma unroll
+  for (int k = 0; k < kChainK; ++k) {
+    const int l = lane + 32 * k;
+    p[k] = i[base + l];
+    row[l] = t[base + l];
+    pw[0][l] = p[k];
+    r[k] = l;
   }
-  o[e] = acc[cur][e];
+  __syncwarp();
+  int cur = 0;
+  for (unsigned n = rounds; n != 0;) {
+    if (n & 1u)
+#pragma unroll
+      for (int k = 0; k < kChainK; ++k) r[k] = pw[cur][r[k]];
+    n >>= 1;
+    if (n == 0) break;
+#pragma unroll
+    for (int k = 0; k < kChainK; ++k) p[k] = pw[cur][p[k]];
+#pragma unroll
+    for (int k = 0; k < kChainK; ++k) pw[cur ^ 1][lane + 32 * k] = p[k];
+    cur ^= 1;
+    __syncwarp();
+  }
+#pragma unroll
+  for (int k = 0; k < kChainK; ++k) o[base + lane + 32 * k] = row[r[k]];
 }
 
-// o[s, l] = sum over s' < rounds of t[(i[s, l] + s') % N, l], in order of
-// s' from zero, each add rounded on its own.
-__global__ void sum_gather(const float* __restrict__ t,
-                           const int* __restrict__ i, float* __restrict__ o,
-                           int S, int W, int N, int rounds) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= S * W) return;
-  const int l = e % W, base = i[e];
-  float acc = 0.f;
-  for (int s = 0; s < rounds; ++s)
-    acc = __fadd_rn(acc, t[(long long)((base + s) % N) * W + l]);
-  o[e] = acc;
+// ---- C100: `rounds` shifted sublane gathers, summed ---------------------
+//
+// o[s, l] = sum over s' < rounds of t[(i[s, l] + s') % N, l], added in
+// order of s' from zero, each add rounded on its own (__fadd_rn), as the
+// twin adds. The adds are one dependent chain a thread (~4 cycles each);
+// the loads are not, so all of them are issued before the adds. Two
+// paths, chosen by the C entry from the shape:
+//   staged, at the probe's R = 100 (kSumR; N >= R, W % 8 == 0, N <= 1024,
+//     at most 32 index rows, t 16-byte aligned): CTA x stages columns
+//     [8x, 8x + 8) of every row (one 32-byte sector a row) into shared
+//     memory by 16-byte cp.async, rows 0 .. R - 1 again after row N - 1
+//     (19.6 KB at N = 512), so no window wraps; the 100 loads, unrolled at
+//     compile time, are shared loads at constant offsets, all in flight
+//     before the 100 adds; W / 8 = 16 CTAs of 256 threads at the probe's
+//     shape, one output a thread;
+//   general, any other shape and R: one warp a CTA reads its rows from
+//     device memory (L2), in batches of 16 loads before their adds, a
+//     compare a row for the wrap (`%` where R > N).
+// Reading the probe's 100 rows from L2, all unrolled and in flight, took
+// 1.5x the staged time (PERF.md, Findings).
+constexpr int kSumR = 100;          // the probe's rounds, unrolled
+constexpr int kSumBatch = 16;       // loads before their adds, general path
+constexpr int kSumCols = 8;         // columns a staged CTA holds
+constexpr int kSumMaxN = 1024;      // rows a staged CTA holds (+ kSumR)
+constexpr int kSumThreads = 256;    // a staged CTA
+constexpr int kSumGenThreads = 32;  // a general CTA
+
+// Row base + s of N (base in [0, N)): one compare when s < N.
+__device__ __forceinline__ int wrap_row(int base, int s, int N, bool once) {
+  const int r = base + s;
+  return once ? (r >= N ? r - N : r) : r % N;
 }
+
+// Sum over s < R of col[(base + s) * stride], a table whose rows repeat
+// past N - 1.
+template <int R>
+__device__ __forceinline__ float fixed_sum(const float* col, int stride,
+                                           int base) {
+  float v[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) v[s] = col[(base + s) * stride];
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < R; ++s) acc = __fadd_rn(acc, v[s]);
+  return acc;
+}
+
+// The same at any `rounds`, rows (base + s) % N, in batches of kSumBatch.
+__device__ __forceinline__ float any_sum(const float* col, int stride,
+                                         int base, int N, int rounds) {
+  const bool once = rounds <= N;
+  float acc = 0.f;
+  for (int s0 = 0; s0 < rounds; s0 += kSumBatch) {
+    float v[kSumBatch];
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k)
+      if (s0 + k < rounds) v[k] = col[wrap_row(base, s0 + k, N, once) * stride];
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k)
+      if (s0 + k < rounds) acc = __fadd_rn(acc, v[k]);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kSumGenThreads)
+sum_gather_general(const float* __restrict__ t, const int* __restrict__ i,
+                   float* __restrict__ o, int S, int W, int N, int rounds) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < S * W) o[e] = any_sum(t + e % W, W, i[e], N, rounds);
+}
+
+// CTA x: columns [8x, 8x + 8) of every row as tab[row][8], rows 0 .. R - 1
+// staged again after row N - 1; rounds == R <= N and S * 8 <= kSumThreads
+// (one output a thread).
+template <int R>
+__global__ void __launch_bounds__(kSumThreads)
+sum_gather_staged(const float* __restrict__ t, const int* __restrict__ i,
+                  float* __restrict__ o, int S, int W, int N) {
+  __shared__ __align__(16) float tab[(kSumMaxN + R) * kSumCols];
+  const int c0 = blockIdx.x * kSumCols;
+  const int n_out = S * kSumCols;
+  auto out_index = [&](int e) {
+    return (e / kSumCols) * W + c0 + e % kSumCols;
+  };
+  // the first output's index, loaded while the copies fly: the empty asm
+  // needs it before the wait (a load of read-only data may otherwise sink
+  // below it)
+  const int base = threadIdx.x < n_out ? i[out_index(threadIdx.x)] : 0;
+  for (int q = threadIdx.x; q < (N + R) * 2; q += kSumThreads) {
+    const int row = q >> 1;
+    cp_async16(tab + q * 4, t + (long long)(row < N ? row : row - N) * W +
+                                c0 + (q & 1) * 4);
+  }
+  asm volatile("" ::"r"(base));
+  cp_async_wait_all();
+  __syncthreads();
+  if (threadIdx.x < n_out)
+    o[out_index(threadIdx.x)] =
+        fixed_sum<R>(tab + threadIdx.x % kSumCols, kSumCols, base);
+}
+
+__global__ void empty_kernel() {}
 
 constexpr int kOhF = 96;     // columns of t and of the output (wgmma N)
 constexpr int kOhSlab = 64;  // rows of t a CTA stages: 4 k-steps of 16
@@ -322,23 +449,53 @@ extern "C" int tbvh_gather_flat(const float* flat, const int* i, float* o,
   return tbvh::launched();
 }
 
-// t, i, o (8, 128): `rounds` chained lane gathers.
+// t, i, o (8, 128): `rounds` (>= 0) chained lane gathers.
 extern "C" int tbvh_gather_chain(const float* t, const int* i, float* o,
                                  int rounds, void* stream) {
   if (rounds < 0) return (int)cudaErrorInvalidValue;
-  tbvh::chain_gather<<<1, tbvh::kCta, 0, (cudaStream_t)stream>>>(t, i, o,
-                                                                 rounds);
+  tbvh::chain_gather<<<tbvh::kF, 32, 0, (cudaStream_t)stream>>>(t, i, o,
+                                                               rounds);
   return tbvh::launched();
 }
 
-// t (N, W) f32, i (S, W) in [0, N) -> (S, W): `rounds` shifted sums.
+// t (N, W) f32, i (S, W) in [0, N) -> (S, W): `rounds` (>= 0) shifted
+// sums, by the staged path where the shape allows it (see above), else
+// by the general one.
 extern "C" int tbvh_gather_sum(const float* t, const int* i, float* o, int S,
                                int W, int N, int rounds, void* stream) {
   if (S <= 0 || W <= 0 || N <= 0 || rounds < 0)
     return (int)cudaErrorInvalidValue;
-  tbvh::sum_gather<<<tbvh::blocks(S * W, tbvh::kThreads), tbvh::kThreads, 0,
-                     (cudaStream_t)stream>>>(t, i, o, S, W, N, rounds);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rounds == tbvh::kSumR && N >= rounds && N <= tbvh::kSumMaxN &&
+      W % tbvh::kSumCols == 0 && S * tbvh::kSumCols <= tbvh::kSumThreads &&
+      reinterpret_cast<std::uintptr_t>(t) % 16 == 0)
+    tbvh::sum_gather_staged<tbvh::kSumR>
+        <<<W / tbvh::kSumCols, tbvh::kSumThreads, 0, s>>>(t, i, o, S, W, N);
+  else
+    tbvh::sum_gather_general<<<tbvh::blocks((long long)S * W,
+                                            tbvh::kSumGenThreads),
+                               tbvh::kSumGenThreads, 0, s>>>(t, i, o, S, W,
+                                                             N, rounds);
   return tbvh::launched();
+}
+
+// An empty kernel of one warp: the device time of a launch alone.
+extern "C" int tbvh_gather_empty(void* stream) {
+  tbvh::empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return tbvh::launched();
+}
+
+// The resources of the chain kernel and of the sum kernel's staged path
+// (the probe's).
+extern "C" int tbvh_gather_chain_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::chain_gather), 32, 0, out);
+}
+
+extern "C" int tbvh_gather_sum_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::sum_gather_staged<tbvh::kSumR>),
+      tbvh::kSumThreads, 0, out);
 }
 
 // t (N, 96) bf16 bits (16-byte aligned), idx (M,) in [0, N) -> (M, 96)

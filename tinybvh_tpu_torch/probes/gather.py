@@ -26,7 +26,8 @@ CUDA graph (recorded there, not run; the graph's replays run it).
 
 runs every form on the card: each kernel against its twin (torch.equal),
 its time from CUDA events over 200 launches and its device time from one
-CUDA graph of 200 launches.
+CUDA graph of 200 launches; then the device time of an empty kernel's
+launch (launch_floor_ms), the least any form can take.
 """
 
 from __future__ import annotations
@@ -161,6 +162,8 @@ def _chain_plain(t, i):
 
 
 def chain_gather(t, i):
+    """o[f, l] = t[f, i^ROUNDS(l)]: the kernel composes row f's index map
+    by doubling."""
     if not _on_cuda("chain_gather", t, i):
         return _chain_plain(t, i)
     _check("chain t", t, torch.float32, (F, W))
@@ -181,13 +184,16 @@ def _sum_plain(t, i):
 
 
 def sum_gather(t, i):
+    """At the probe's shape the kernel stages the table's column slices in
+    shared memory; its C entry reads any other shape from L2."""
     if not _on_cuda("sum_gather", t, i):
         return _sum_plain(t, i)
     N, Wt = t.shape
     _check("sum t", t, torch.float32, (N, Wt))
     _check("sum i", i, torch.int32, (i.shape[0], Wt))
     out = torch.empty(i.shape, dtype=torch.float32, device=t.device)
-    _launch("sum_gather", "tbvh_gather_sum", t, i, out, i.shape[0], Wt, N, ROUNDS)
+    _launch("sum_gather", "tbvh_gather_sum", t, i, out, i.shape[0], Wt, N,
+            ROUNDS)
     return out
 
 
@@ -218,6 +224,21 @@ def onehot_gather(t, idx):
     out = torch.empty((M, Ft), dtype=torch.float32, device=t.device)
     _launch("onehot_gather", "tbvh_gather_onehot", t, idx, out, M, N, Ft, REPS)
     return out
+
+
+# ---- the launch floor -------------------------------------------------------
+
+def _empty(dev):
+    err = _build.kernels().tbvh_gather_empty(
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "tbvh_gather_empty")
+
+
+def launch_floor_ms(device) -> float:
+    """Device ms of one launch of an empty kernel (one warp), from one CUDA
+    graph of N_TIMED launches: what any launch of these forms costs before
+    its work. It computes nothing, so nothing counts it."""
+    return graph_ms(lambda: _empty(device), N_TIMED)
 
 
 # ---- the forms at the probes' shapes --------------------------------------
@@ -333,6 +354,8 @@ def run(device=None):
 def main() -> int:
     dev = default_device(None)
     res = run(dev)
+    print(f"gather launch floor (an empty kernel): device "
+          f"{launch_floor_ms(dev):.4f} ms", flush=True)
     for name, r in res.items():
         print(f"gather {name:5s} {FORMS[name].work}: kernel {r['ms']:.4f} ms, "
               f"device {r['device_ms']:.4f} ms, equal to its twin "
