@@ -100,9 +100,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (index_select, gather, take, or for D torch.mm of 10 x the one-hot
      matrix in f32 with t in f32, equal to the kernel; events and a CUDA
      graph, as the kernel) and its bound; the launch floor (an empty
-     kernel's device time) and, for H-A100 and H-C100, the device time of
-     each kernel (and of H-A100's at 0 rounds), each output checked, what
-     sets the pace, and their occupancy; H-D's occupancy.
+     kernel's device time) and, for the redesigned H-B, H-B2, H-A100 and
+     H-C100, the device time of each kernel (and of H-A100's at 0
+     rounds), each output checked, what sets the pace, and their
+     occupancy (one line for the 1,024-wide lane kernel of H-B and
+     H-B2); H-D's occupancy.
      Kernel I, kernel
      B's tile loop in eight variants at 16, 64 and 256 clustered keys a
      tile and at 64 scattered ones (T = 1,600, k_cap 256, the random64k
@@ -2232,16 +2234,26 @@ def library_call(form, args):
     return None
 
 
+REDESIGNS = ("B", "B2", "A100", "C100")   # the H forms given a design
+# what a redesigned form's time above the launch floor pays for, where no
+# call of it at 0 rounds splits it
+REDESIGN_REST = {"B": "its row's staging and lookup",
+                 "B2": "its row's staging and lookup",
+                 "C100": "its staging and rounds"}
+
+
 def redesign_calls(form, args):
-    """H form A100 or C100 on `args`: {label: (zero-argument callable,
-    expected output)}, the wrapper's call and, for A100, its kernel at 0
-    rounds through the C entry (its fixed part: loads and stores). Each
-    call writes a buffer of its own."""
+    """H form `form` (REDESIGNS) on `args`: {label: (zero-argument
+    callable, expected output)}, the wrapper's call first and, for A100,
+    its kernel at 0 rounds through the C entry (its fixed part: loads and
+    stores). Each call writes a buffer of its own."""
     import torch
     from tinybvh_tpu_torch.probes import gather
 
     t, i = args
     ref = gather.FORMS[form].plain(t, i)
+    if form in ("B", "B2"):
+        return {"row slices": (lambda: gather.lane_gather(t, i), ref)}
     if form == "C100":
         return {"staged": (lambda: gather.sum_gather(t, i), ref)}
 
@@ -2255,11 +2267,12 @@ def redesign_calls(form, args):
 
 
 def phase_redesigns(h, kern, gpu_line, n=3):
-    """H-A100 and H-C100 against the launch floor: the device time (one
-    CUDA graph of N_TIMED launches) of an empty kernel and of each call of
-    redesign_calls, n rounds in turns, each output checked; what sets the
-    pace of the wrapper's form: the floor, its fixed part above the floor
-    (A100) and the rest; then the two kernels' resources."""
+    """The redesigned H forms (REDESIGNS) against the launch floor: the
+    device time (one CUDA graph of N_TIMED launches) of an empty kernel
+    and of each call of redesign_calls, n rounds in turns, each output
+    checked with torch.equal; what sets the pace of the wrapper's form:
+    the floor, its fixed part above the floor (A100) and the rest; then
+    the kernels' resources."""
     import torch
     from tinybvh_tpu_torch import _build
     from tinybvh_tpu_torch.probes import gather
@@ -2268,7 +2281,7 @@ def phase_redesigns(h, kern, gpu_line, n=3):
     floor = gather.launch_floor_ms(dev)
     print(f"phase 14 launch floor: an empty kernel (one warp) device "
           f"{floor:.6f} ms [{gpu_line}]", flush=True)
-    for form in ("A100", "C100"):
+    for form in REDESIGNS:
         calls = redesign_calls(form, h[form]["args"])
         times = {k: [] for k in calls}
         for k in [k for _ in range(n) for k in calls]:
@@ -2277,7 +2290,7 @@ def phase_redesigns(h, kern, gpu_line, n=3):
                 raise AssertionError(f"gather_{form} {k}: wrong output")
             times[k].append(device_ms(fn, gather.N_TIMED))
         k = kern[f"gather_{form}"]
-        main = "doubling" if form == "A100" else "staged"
+        main = next(iter(calls))
         new = min(times[main])
         if form == "A100":
             fixed = min(times[f"{main} at 0 rounds"])
@@ -2285,17 +2298,19 @@ def phase_redesigns(h, kern, gpu_line, n=3):
                      "its fixed part": fixed - floor, "its rounds": new - fixed}
         else:
             parts = {"the launch floor": floor,
-                     "its staging and rounds": new - floor}
+                     REDESIGN_REST[form]: new - floor}
         print(f"phase 14 redesign gather_{form}: device ms " + "; ".join(
             f"{lab} " + " / ".join(f"{x:.6f}" for x in ts)
             for lab, ts in times.items())
-              + f"; bound {k['bound_ms']:.6f} ms ({k['bound_by']}), launch "
+              + f"; equal to its twin in every call; bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}), launch "
               f"floor {floor:.6f} ms; {main} {new / floor:.2f}x the floor, "
               "paced by " + ", ".join(f"{lab} {ms:.6f}" for lab, ms in
                                        sorted(parts.items(),
                                               key=lambda kv: -kv[1]))
               + f" [{gpu_line}]", flush=True)
-    for entry, form in (("tbvh_gather_chain_occupancy", "A100"),
+    for entry, form in (("tbvh_gather_lane_occupancy", "B / H-B2"),
+                        ("tbvh_gather_chain_occupancy", "A100"),
                         ("tbvh_gather_sum_occupancy", "C100")):
         print(f"phase 14 occupancy of kernel H-{form}: "
               + occupancy_text(_build.occupancy(entry)) + f" [{gpu_line}]",
@@ -2306,7 +2321,7 @@ def phase_probes(bvh, gpu_line, n_plain=20):
     """Phase 14: the probes' drivers (kernels H and I), each kernel against
     its twin, launches counted over the drivers' runs; each H form and I
     variant with its time, device time, twin's time, bound and (H) the
-    library call's time; H-A100 and H-C100 against the launch floor
+    library call's time; the redesigned H forms against the launch floor
     (phase_redesigns); kernel I's split of
     B's tile loop. Returns the kernel entries and launches of the JSON
     line."""

@@ -1539,6 +1539,61 @@ def test_sum_kernel_other_shapes(N, Wt, S, rounds):
     assert torch.equal(out, _gather_loop(t, i, rounds, 0))
 
 
+# H-B and H-B2's kernel (one CTA per row and 256 outputs) on constructed
+# indices, at output widths whose last slice is partial or whose grid
+# passes the probes' (tests/test_torch_probes.py holds the twin to the JAX
+# probe's kB / kB2 on the same cases at the probes' two widths)
+LANE_EDGE_CASES = ("ends", "one_index", "reversed", "per_row")
+LANE_OWS = (1, 100, 128, 129, 256, 1024, 2048)
+LANE_ONE_INDEX = (0, 1023, 511, 512, 1, 1022, 255, 768)  # a row's index
+
+
+def lane_edge_inputs(case, OW, seed=0):
+    """(t (8, 1024) f32, i (8, OW) int32) numpy: t uniform plus its row
+    number, so that rows differ everywhere and a wrong row shows; i
+    alternating 0 and 1023; one index for each whole row; the reversed
+    permutation (repeated past 1,024 outputs); or a different
+    permutation in each row, l * (2f + 1) + 37f mod 1024."""
+    rng = np.random.default_rng(seed)
+    t = (rng.random((hg.F, 1024), dtype=np.float32)
+         + np.arange(hg.F, dtype=np.float32)[:, None])
+    f = np.arange(hg.F)[:, None]
+    l = np.arange(OW)[None]
+    if case == "ends":
+        i = np.where((f + l) % 2 == 0, 0, 1023)
+    elif case == "one_index":
+        i = np.broadcast_to(np.array(LANE_ONE_INDEX)[:, None], (hg.F, OW))
+    elif case == "reversed":
+        i = np.broadcast_to(1023 - l % 1024, (hg.F, OW))
+    else:
+        i = (l * (2 * f + 1) + 37 * f) % 1024
+    return t, np.ascontiguousarray(i, dtype=np.int32)
+
+
+@pytest.mark.parametrize("OW", LANE_OWS)
+@pytest.mark.parametrize("case", LANE_EDGE_CASES)
+def test_lane_kernel_1024_edge_cases(case, OW):
+    """H-B and H-B2's kernel equals the twin bit for bit and counts one
+    launch; a call captured in a CUDA graph is not counted, and the
+    graph's replay computes the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    t, i = _cuda(*lane_edge_inputs(case, OW))
+    ref = hg._lane_plain(t, i)
+    before = hg.LAUNCHES["lane_gather"]
+    got = hg.lane_gather(t, i)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["lane_gather"] == before + 1
+    assert torch.equal(got, ref)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = hg.lane_gather(t, i)
+    assert hg.LAUNCHES["lane_gather"] == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 def test_launch_floor_is_measured():
     """The empty kernel launches and its device time is above zero."""
     if not torch.cuda.is_available():
@@ -1629,6 +1684,13 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
         hg.lane_gather(torch.zeros((8, 256), device="cuda"), i)
     with pytest.raises(ValueError):
         hg.row_gather(t, i[0].cpu())
+    t, i = gather_inputs["B"]
+    odd = torch.zeros(hg.F * 1024 + 1, device="cuda")[1:].view(hg.F, 1024)
+    with pytest.raises(ValueError):   # 1024-wide tables 16-byte aligned
+        hg.lane_gather(odd, i)
+    with pytest.raises(RuntimeError):  # the C entry's own check
+        hg._launch("lane_gather", "tbvh_gather_lane", odd, i,
+                   torch.empty(i.shape, device="cuda"), 1024, 1024)
     t, idx = gather_inputs["D2048"]
     with pytest.raises(TypeError):
         hg.onehot_gather(t.float(), idx)

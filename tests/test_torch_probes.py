@@ -3,7 +3,11 @@
 Kernel H (tinybvh_tpu_torch/probes/gather.py): each twin against the JAX
 probe body under pl.pallas_call(..., interpret=True) on the probe
 module's own arrays, exactly (assert_array_equal); `kernel2`, nested in
-the probe's main(), against the probe's own numpy expression.
+the probe's main(), against the probe's own numpy expression. The lane
+twin of H-B and H-B2 also against `kB` / `kB2` on the constructed cases
+of tests/test_torch_cuda.py (indices 0 and 1023, one index a row, the
+reversed permutation, a permutation of its own in each row; rows that
+differ everywhere), at the probes' two output widths.
 
 What the redesigned H-A100 and H-C100 kernels rely on, against numpy:
 R chained lane gathers are the row's index map composed R times (the
@@ -45,7 +49,8 @@ from tinybvh_tpu_torch.probes import gather as hg  # noqa: E402
 from tinybvh_tpu_torch.probes import mt_ablation as ma  # noqa: E402
 from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 from test_torch_cuda import (  # noqa: E402
-    CHAIN_MAPS, CHAIN_ROUNDS, SUM_EDGES, chain_map, sum_inputs)
+    CHAIN_MAPS, CHAIN_ROUNDS, LANE_EDGE_CASES, SUM_EDGES, chain_map,
+    lane_edge_inputs, sum_inputs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, K_CAP, KPT = 8, 64, 40
@@ -118,6 +123,19 @@ def test_gather_twin_matches_jax_probe(probes, form):
     got = wrapper(*[_t(a) for a in arrays])
     assert hg.LAUNCHES == before          # the CPU runs the twin
     assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("form,OW", [("B", 1024), ("B2", 128)])
+@pytest.mark.parametrize("case", LANE_EDGE_CASES)
+def test_lane_twin_matches_jax_probe_on_edge_cases(probes, case, form, OW):
+    t, i = lane_edge_inputs(case, OW)
+    body = getattr(probes["pallas_gather_probe2"], f"k{form}")
+    ref = _interpret(body, (hg.F, OW), jnp.float32, jnp.asarray(t),
+                     jnp.asarray(i))
+    before = dict(hg.LAUNCHES)
+    got = hg.lane_gather(torch.from_numpy(t), torch.from_numpy(i))
+    assert hg.LAUNCHES == before          # the CPU runs the twin
     np.testing.assert_array_equal(got.numpy(), ref)
 
 

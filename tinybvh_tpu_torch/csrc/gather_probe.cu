@@ -9,8 +9,9 @@
 // from device memory (resident in L2) where it does not:
 //   row    out[r] = table[idx[r], :]: 16-byte loads, 12 per 48-lane row;
 //   col    out[r] = a[r, col[r]]: one thread per row;
-//   lane   o[f, l] = t[f, i[f, l]] (A, B, B2): the (8, W) table staged in
-//          shared memory (4 KB for A, 32 KB for B and B2);
+//   lane   o[f, l] = t[f, i[f, l]] (A, B, B2): A's (8, 128) table staged
+//          whole in shared memory (4 KB) by one CTA; B's and B2's (8, 1024)
+//          table one row per CTA of a (row, output slice) grid (see below);
 //   sub    o[s, l] = t[i[s, l], l] (C): the (512, 128) table (256 KB, more
 //          than one SM's shared memory) read from device memory;
 //   flat   o = flat[i] (E);
@@ -93,16 +94,47 @@ __global__ void col_gather(const float* __restrict__ a,
   if (r < R) out[r] = a[(long long)r * C + col[r]];
 }
 
-// o (kF, OW)[f, l] = t (kF, TW)[f, i[f, l]], the table in shared memory.
-template <int TW>
+// o (kF, OW)[f, l] = t (kF, kW)[f, i[f, l]] (A), the table in shared memory.
 __global__ void __launch_bounds__(kCta)
 lane_gather(const float* __restrict__ t, const int* __restrict__ i,
             float* __restrict__ o, int OW) {
-  __shared__ float tab[kF * TW];
-  for (int e = threadIdx.x; e < kF * TW; e += kCta) tab[e] = t[e];
+  __shared__ float tab[kF * kW];
+  for (int e = threadIdx.x; e < kF * kW; e += kCta) tab[e] = t[e];
   __syncthreads();
   for (int e = threadIdx.x; e < kF * OW; e += kCta)
-    o[e] = tab[(e / OW) * TW + i[e]];
+    o[e] = tab[(e / OW) * kW + i[e]];
+}
+
+// ---- B, B2: lane gathers of an (8, 1024) table ---------------------------
+//
+// o (kF, OW)[f, l] = t (kF, 1024)[f, i[f, l]]. A few KB move, so a launch
+// is bound by its fixed cost and its dependent chain, not by bytes. The
+// grid is (OW / 256 slices, 8 rows), one output a thread: 32 CTAs for B
+// (OW = 1,024), 8 for B2 (OW = 128). A CTA stages only its row (4 KB, one
+// 16-byte load a thread; rows are 4,096 B apart, so each is aligned when t
+// is) and loads its own index in the same phase, so the chain is one L2
+// round trip, one barrier, a shared lookup and a coalesced store. The last
+// slice may be partial: its threads past OW stage their part of the row
+// and store nothing. Reading t[f, i] from L2 after the index instead (no
+// staging, two dependent round trips) took 1.08-1.12x as long at both
+// shapes, and one CTA staging the whole 32 KB table 1.6-2.2x (PERF.md,
+// Findings).
+constexpr int kLaneRow = 1024;               // lanes of the B and B2 tables
+constexpr int kLaneThreads = kLaneRow / 4;   // one float4 of the row a thread
+
+__global__ void __launch_bounds__(kLaneThreads)
+lane_gather_row(const float* __restrict__ t, const int* __restrict__ i,
+                float* __restrict__ o, int OW) {
+  __shared__ __align__(16) float row[kLaneRow];
+  const int f = blockIdx.y;
+  const int l = blockIdx.x * kLaneThreads + threadIdx.x;
+  const bool live = l < OW;
+  const long long e = (long long)f * OW + l;
+  const int k = live ? i[e] : 0;
+  reinterpret_cast<float4*>(row)[threadIdx.x] =
+      reinterpret_cast<const float4*>(t + f * kLaneRow)[threadIdx.x];
+  __syncthreads();
+  if (live) o[e] = row[k];
 }
 
 __global__ void sublane_gather(const float* __restrict__ t,
@@ -416,17 +448,21 @@ extern "C" int tbvh_gather_col(const float* a, const int* col, float* out,
   return tbvh::launched();
 }
 
-// t (8, TW) f32 with TW 128 or 1024, i (8, OW) -> (8, OW).
+// t (8, TW) f32 with TW 128 or 1024 (then 16-byte aligned), i (8, OW) ->
+// (8, OW).
 extern "C" int tbvh_gather_lane(const float* t, const int* i, float* o,
                                 int TW, int OW, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (OW <= 0) return (int)cudaErrorInvalidValue;
-  if (TW == 128)
-    tbvh::lane_gather<128><<<1, tbvh::kCta, 0, s>>>(t, i, o, OW);
-  else if (TW == 1024)
-    tbvh::lane_gather<1024><<<1, tbvh::kCta, 0, s>>>(t, i, o, OW);
-  else
+  if (TW == tbvh::kW) {
+    tbvh::lane_gather<<<1, tbvh::kCta, 0, s>>>(t, i, o, OW);
+  } else if (TW == tbvh::kLaneRow &&
+             reinterpret_cast<std::uintptr_t>(t) % 16 == 0) {
+    const dim3 grid(tbvh::blocks(OW, tbvh::kLaneThreads), tbvh::kF);
+    tbvh::lane_gather_row<<<grid, tbvh::kLaneThreads, 0, s>>>(t, i, o, OW);
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return tbvh::launched();
 }
 
@@ -485,8 +521,14 @@ extern "C" int tbvh_gather_empty(void* stream) {
   return tbvh::launched();
 }
 
-// The resources of the chain kernel and of the sum kernel's staged path
-// (the probe's).
+// The resources of the 1,024-wide lane kernel (B, B2), of the chain
+// kernel and of the sum kernel's staged path (the probe's).
+extern "C" int tbvh_gather_lane_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::lane_gather_row),
+      tbvh::kLaneThreads, 0, out);
+}
+
 extern "C" int tbvh_gather_chain_occupancy(int* out) {
   return tbvh::kernel_occupancy(
       reinterpret_cast<const void*>(&tbvh::chain_gather), 32, 0, out);

@@ -107,6 +107,9 @@ def _lane_plain(t, i):
 
 
 def lane_gather(t, i):
+    """At TW = 1024 (B, B2) the kernel runs one CTA per (row, 256 outputs)
+    and stages only that row, by 16-byte loads: t must be 16-byte
+    aligned."""
     if not _on_cuda("lane_gather", t, i):
         return _lane_plain(t, i)
     TW, OW = t.shape[1], i.shape[1]
@@ -114,6 +117,8 @@ def lane_gather(t, i):
         raise ValueError(f"lane_gather: table width {TW} not 128 or 1024")
     _check("lane t", t, torch.float32, (F, TW))
     _check("lane i", i, torch.int32, (F, OW))
+    if TW == 1024 and t.data_ptr() % 16:
+        raise ValueError("lane_gather: a 1024-wide t must be 16-byte aligned")
     out = torch.empty((F, OW), dtype=torch.float32, device=t.device)
     _launch("lane_gather", "tbvh_gather_lane", t, i, out, TW, OW)
     return out
