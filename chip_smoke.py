@@ -100,11 +100,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (index_select, gather, take, or for D torch.mm of 10 x the one-hot
      matrix in f32 with t in f32, equal to the kernel; events and a CUDA
      graph, as the kernel) and its bound; the launch floor (an empty
-     kernel's device time) and, for the redesigned H-B, H-B2, H-A100 and
-     H-C100, the device time of each kernel (and of H-A100's at 0
-     rounds), each output checked, what sets the pace, and their
-     occupancy (one line for the 1,024-wide lane kernel of H-B and
-     H-B2); H-D's occupancy.
+     kernel's device time) and, for the redesigned H-A, H-B, H-B2, H-E,
+     H-A100 and H-C100, the device time of each kernel (and of H-A100's
+     at 0 rounds, and of H-E's general path on a 2,049-float table), each
+     output checked, what sets the pace, and their occupancy (the lane
+     kernel at widths 128 and 1,024, H-E's staged path); H-D's
+     occupancy.
      Kernel I, kernel
      B's tile loop in eight variants at 16, 64 and 256 clustered keys a
      tile and at 64 scattered ones (T = 1,600, k_cap 256, the random64k
@@ -2234,26 +2235,35 @@ def library_call(form, args):
     return None
 
 
-REDESIGNS = ("B", "B2", "A100", "C100")   # the H forms given a design
+REDESIGNS = ("A", "B", "B2", "E", "A100", "C100")  # H forms given a design
 # what a redesigned form's time above the launch floor pays for, where no
 # call of it at 0 rounds splits it
-REDESIGN_REST = {"B": "its row's staging and lookup",
+REDESIGN_REST = {"A": "its row's staging and lookup",
+                 "B": "its row's staging and lookup",
                  "B2": "its row's staging and lookup",
+                 "E": "its table's staging and lookup",
                  "C100": "its staging and rounds"}
 
 
 def redesign_calls(form, args):
     """H form `form` (REDESIGNS) on `args`: {label: (zero-argument
-    callable, expected output)}, the wrapper's call first and, for A100,
-    its kernel at 0 rounds through the C entry (its fixed part: loads and
-    stores). Each call writes a buffer of its own."""
+    callable, expected output)}, the wrapper's call first; for A100, its
+    kernel at 0 rounds through the C entry (its fixed part: loads and
+    stores); for E, its general path on the table with one float more
+    (2,049, not a multiple of 4: the same outputs). Each call writes a
+    buffer of its own."""
     import torch
     from tinybvh_tpu_torch.probes import gather
 
     t, i = args
     ref = gather.FORMS[form].plain(t, i)
-    if form in ("B", "B2"):
+    if form in ("A", "B", "B2"):
         return {"row slices": (lambda: gather.lane_gather(t, i), ref)}
+    if form == "E":
+        longer = torch.cat([t, t[:1]])
+        return {"staged": (lambda: gather.flat_take(t, i), ref),
+                "general (N = 2,049)": (lambda: gather.flat_take(longer, i),
+                                        ref)}
     if form == "C100":
         return {"staged": (lambda: gather.sum_gather(t, i), ref)}
 
@@ -2309,12 +2319,17 @@ def phase_redesigns(h, kern, gpu_line, n=3):
                                        sorted(parts.items(),
                                               key=lambda kv: -kv[1]))
               + f" [{gpu_line}]", flush=True)
-    for entry, form in (("tbvh_gather_lane_occupancy", "B / H-B2"),
-                        ("tbvh_gather_chain_occupancy", "A100"),
-                        ("tbvh_gather_sum_occupancy", "C100")):
+    n_flat = h["E"]["args"][0].shape[0]
+    for (entry, *args), form in (
+            (("tbvh_gather_lane_occupancy", gather.W), "A"),
+            (("tbvh_gather_lane_occupancy", 1024), "B / H-B2"),
+            (("tbvh_gather_flat_occupancy", n_flat),
+             f"E (staged, N = {n_flat})"),
+            (("tbvh_gather_chain_occupancy",), "A100"),
+            (("tbvh_gather_sum_occupancy",), "C100")):
         print(f"phase 14 occupancy of kernel H-{form}: "
-              + occupancy_text(_build.occupancy(entry)) + f" [{gpu_line}]",
-              flush=True)
+              + occupancy_text(_build.occupancy(entry, *args))
+              + f" [{gpu_line}]", flush=True)
 
 
 def phase_probes(bvh, gpu_line, n_plain=20):

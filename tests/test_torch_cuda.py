@@ -22,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tinybvh_tpu_torch import BVH  # noqa: E402
+from tinybvh_tpu_torch import BVH, _build  # noqa: E402
 from tinybvh_tpu_torch.core.intersect import brute_force_closest  # noqa: E402
 from tinybvh_tpu_torch.core.rays import make_rays  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
@@ -1539,35 +1539,57 @@ def test_sum_kernel_other_shapes(N, Wt, S, rounds):
     assert torch.equal(out, _gather_loop(t, i, rounds, 0))
 
 
-# H-B and H-B2's kernel (one CTA per row and 256 outputs) on constructed
-# indices, at output widths whose last slice is partial or whose grid
-# passes the probes' (tests/test_torch_probes.py holds the twin to the JAX
-# probe's kB / kB2 on the same cases at the probes' two widths)
+# The lane kernel (one CTA per row and output slice: 128 outputs at width
+# 128, H-A; 256 at 1,024, H-B and H-B2) on constructed indices, at output
+# widths whose last slice is partial or whose grid passes the probes'
+# (tests/test_torch_probes.py holds the twin to the JAX probe's kA / kB /
+# kB2 on the same cases at the probes' widths)
 LANE_EDGE_CASES = ("ends", "one_index", "reversed", "per_row")
 LANE_OWS = (1, 100, 128, 129, 256, 1024, 2048)
-LANE_ONE_INDEX = (0, 1023, 511, 512, 1, 1022, 255, 768)  # a row's index
+LANE_OWS_128 = (1, 31, 32, 33, 100, 128, 129, 256, 1024)
 
 
-def lane_edge_inputs(case, OW, seed=0):
-    """(t (8, 1024) f32, i (8, OW) int32) numpy: t uniform plus its row
+def lane_edge_inputs(case, OW, seed=0, TW=1024):
+    """(t (8, TW) f32, i (8, OW) int32) numpy: t uniform plus its row
     number, so that rows differ everywhere and a wrong row shows; i
-    alternating 0 and 1023; one index for each whole row; the reversed
-    permutation (repeated past 1,024 outputs); or a different
-    permutation in each row, l * (2f + 1) + 37f mod 1024."""
+    alternating 0 and TW - 1; one index for each whole row (0, TW - 1,
+    TW / 2 - 1, TW / 2, 1, TW - 2, TW / 4 - 1, 3 TW / 4); the reversed
+    permutation (repeated past TW outputs); or a different permutation in
+    each row, l * (2f + 1) + 37f mod TW."""
     rng = np.random.default_rng(seed)
-    t = (rng.random((hg.F, 1024), dtype=np.float32)
+    t = (rng.random((hg.F, TW), dtype=np.float32)
          + np.arange(hg.F, dtype=np.float32)[:, None])
     f = np.arange(hg.F)[:, None]
     l = np.arange(OW)[None]
     if case == "ends":
-        i = np.where((f + l) % 2 == 0, 0, 1023)
+        i = np.where((f + l) % 2 == 0, 0, TW - 1)
     elif case == "one_index":
-        i = np.broadcast_to(np.array(LANE_ONE_INDEX)[:, None], (hg.F, OW))
+        one = (0, TW - 1, TW // 2 - 1, TW // 2, 1, TW - 2, TW // 4 - 1,
+               3 * TW // 4)
+        i = np.broadcast_to(np.array(one)[:, None], (hg.F, OW))
     elif case == "reversed":
-        i = np.broadcast_to(1023 - l % 1024, (hg.F, OW))
+        i = np.broadcast_to(TW - 1 - l % TW, (hg.F, OW))
     else:
-        i = (l * (2 * f + 1) + 37 * f) % 1024
+        i = (l * (2 * f + 1) + 37 * f) % TW
     return t, np.ascontiguousarray(i, dtype=np.int32)
+
+
+def _counted_and_replayed(key, fn, ref):
+    """fn() (a wrapper's call) equals ref bit for bit and counts one launch
+    of `key`; the same call captured in a CUDA graph counts none, and the
+    graph's replay computes ref."""
+    before = hg.LAUNCHES[key]
+    got = fn()
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES[key] == before + 1
+    assert torch.equal(got, ref)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    assert hg.LAUNCHES[key] == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("OW", LANE_OWS)
@@ -1579,19 +1601,102 @@ def test_lane_kernel_1024_edge_cases(case, OW):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     t, i = _cuda(*lane_edge_inputs(case, OW))
-    ref = hg._lane_plain(t, i)
-    before = hg.LAUNCHES["lane_gather"]
-    got = hg.lane_gather(t, i)
+    _counted_and_replayed("lane_gather", lambda: hg.lane_gather(t, i),
+                          hg._lane_plain(t, i))
+
+
+@pytest.mark.parametrize("OW", LANE_OWS_128)
+@pytest.mark.parametrize("case", LANE_EDGE_CASES)
+def test_lane_kernel_128_edge_cases(case, OW):
+    """H-A's kernel (8 rows of 128 lanes, one CTA per row and 128 outputs)
+    equals the twin bit for bit and counts one launch; a call captured in
+    a CUDA graph is not counted, and the graph's replay computes the
+    same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    t, i = _cuda(*lane_edge_inputs(case, OW, TW=hg.W))
+    _counted_and_replayed("lane_gather", lambda: hg.lane_gather(t, i),
+                          hg._lane_plain(t, i))
+
+
+def test_lane_kernel_128_takes_any_alignment():
+    """H-A stages its row by scalar loads: a 128-wide t one float past a
+    16-byte boundary is taken, and the result equals the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    t, i = lane_edge_inputs("per_row", 129, TW=hg.W)
+    base = torch.zeros(t.size + 1, device="cuda")
+    odd = base[1:].view(hg.F, hg.W)
+    odd.copy_(torch.from_numpy(t))
+    i = torch.from_numpy(i).cuda()
+    assert odd.data_ptr() % 16
+    _counted_and_replayed("lane_gather", lambda: hg.lane_gather(odd, i),
+                          hg._lane_plain(odd, i))
+
+
+# H-E's kernel (flat take) on both of its paths: staged where the table
+# is at most FLAT_STAGE_MAX floats, a multiple of 4 and 16-byte aligned,
+# else read from L2 (tests/test_torch_probes.py holds the twin to the JAX
+# probe's kE on the same cases)
+FLAT_STAGE_MAX = 8192    # kFlatStageMax of csrc/gather_probe.cu
+FLAT_TABLES = {"staged-4": 4, "staged-2048": 2048,
+               "staged-max": FLAT_STAGE_MAX, "general-2049": 2049,
+               "general-max+4": FLAT_STAGE_MAX + 4,
+               "general-offset": 2048}   # a view one float past 16 bytes
+FLAT_SHAPES = ((8, 128), (1,), (1000,), (8, 129))
+
+
+def flat_edge_inputs(table, shape, seed=0):
+    """(flat (N,) f32, i `shape` int32) numpy for FLAT_TABLES[table]: flat
+    uniform; i uniform in [0, N) with N - 1, 0, N - 2, N - 3, N - 4, 1, 2
+    and 3 first (as many as fit: a single index is N - 1)."""
+    N = FLAT_TABLES[table]
+    rng = np.random.default_rng(seed)
+    flat = rng.random(N, dtype=np.float32)
+    i = rng.integers(0, N, shape, dtype=np.int32)
+    ends = np.array([N - 1, 0, N - 2, N - 3, N - 4, 1, 2, 3]) % N
+    i.flat[:min(i.size, ends.size)] = ends[:i.size]
+    return flat, i
+
+
+@pytest.mark.parametrize("shape", FLAT_SHAPES)
+@pytest.mark.parametrize("table", list(FLAT_TABLES))
+def test_flat_kernel_edge_cases(table, shape):
+    """H-E's kernel on its staged path (N = 4, 2,048 and FLAT_STAGE_MAX)
+    and its general one (N = 2,049, FLAT_STAGE_MAX + 4, a misaligned
+    view): equal to the twin bit for bit, one launch counted, none for a
+    call captured in a CUDA graph, whose replay computes the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    flat, i = flat_edge_inputs(table, shape)
+    if table == "general-offset":
+        base = torch.zeros(flat.size + 1, device="cuda")
+        t = base[1:]
+        t.copy_(torch.from_numpy(flat))
+        assert t.data_ptr() % 16
+    else:
+        t = torch.from_numpy(flat).cuda()
+    i = torch.from_numpy(i).cuda()
+    _counted_and_replayed("flat_take", lambda: hg.flat_take(t, i),
+                          hg._flat_plain(t, i))
+
+
+@pytest.mark.parametrize("N,n", [(FLAT_STAGE_MAX, 131072),
+                                 (FLAT_STAGE_MAX, 131073),
+                                 (2048, 1048576)])
+def test_flat_kernel_at_the_copies_limit(N, n):
+    """The staged path's copies (a whole table a CTA of 256 outputs) stop
+    at 2^22 floats in all: 131,072 outputs of an 8,192-float table are
+    staged, one more and 1,048,576 of 2,048 take the general path; each
+    equal to the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    rng = np.random.default_rng(n)
+    t, i = _cuda(rng.random(N, dtype=np.float32),
+                 rng.integers(0, N, n, dtype=np.int32))
+    got = hg.flat_take(t, i)
     torch.cuda.synchronize()
-    assert hg.LAUNCHES["lane_gather"] == before + 1
-    assert torch.equal(got, ref)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = hg.lane_gather(t, i)
-    assert hg.LAUNCHES["lane_gather"] == before + 1
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(out, ref)
+    assert torch.equal(got, hg._flat_plain(t, i))
 
 
 def test_launch_floor_is_measured():
@@ -1691,6 +1796,16 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
     with pytest.raises(RuntimeError):  # the C entry's own check
         hg._launch("lane_gather", "tbvh_gather_lane", odd, i,
                    torch.empty(i.shape, device="cuda"), 1024, 1024)
+    flat, i = gather_inputs["E"]
+    with pytest.raises(TypeError):
+        hg.flat_take(flat.double(), i)
+    with pytest.raises(RuntimeError):  # a table of at least one float
+        hg._launch("flat_take", "tbvh_gather_flat", flat, i,
+                   torch.empty(i.shape, device="cuda"), i.numel(), 0)
+    for entry, arg in (("tbvh_gather_lane_occupancy", 256),
+                       ("tbvh_gather_flat_occupancy", FLAT_STAGE_MAX + 4)):
+        with pytest.raises(RuntimeError):  # no such kernel or path
+            _build.occupancy(entry, arg)
     t, idx = gather_inputs["D2048"]
     with pytest.raises(TypeError):
         hg.onehot_gather(t.float(), idx)

@@ -152,3 +152,25 @@ def test_other_devices_raise():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError):
         packet2.cull(*args)
+
+
+def test_c_entries_match_their_ctypes_signatures():
+    """Every `extern "C"` entry of csrc/*.cu has an argtypes list in
+    _build._SIGNATURES with one entry a parameter, a pointer where the C
+    parameter is one and an int where it is an int, and no list names an
+    entry the sources lack (ctypes would cut a pointer passed as an int,
+    or shift the stream, without a word)."""
+    import ctypes
+    import glob
+    import re
+
+    from tinybvh_tpu_torch import _build
+
+    src = "".join(open(p).read() for p in sorted(glob.glob(
+        os.path.join(_build.CSRC, "*.cu"))))
+    entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+    assert set(entries) == set(_build._SIGNATURES)
+    for name, params in entries.items():
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                 for p in params.split(",")]
+        assert _build._SIGNATURES[name] == kinds, name

@@ -5,9 +5,13 @@ probe body under pl.pallas_call(..., interpret=True) on the probe
 module's own arrays, exactly (assert_array_equal); `kernel2`, nested in
 the probe's main(), against the probe's own numpy expression. The lane
 twin of H-B and H-B2 also against `kB` / `kB2` on the constructed cases
-of tests/test_torch_cuda.py (indices 0 and 1023, one index a row, the
-reversed permutation, a permutation of its own in each row; rows that
-differ everywhere), at the probes' two output widths.
+of tests/test_torch_cuda.py (indices 0 and the last, one index a row,
+the reversed permutation, a permutation of its own in each row; rows
+that differ everywhere), at the probes' output widths, and of H-A
+against `kA` on the same cases at its 128-wide table; the flat twin of
+H-E against `kE` on the tables of both of its kernel's paths (N = 4,
+2,048, 8,192, 2,049, 8,196 and an offset view) at index shapes (8, 128),
+(1,), (1000,) and (8, 129).
 
 What the redesigned H-A100 and H-C100 kernels rely on, against numpy:
 R chained lane gathers are the row's index map composed R times (the
@@ -49,8 +53,8 @@ from tinybvh_tpu_torch.probes import gather as hg  # noqa: E402
 from tinybvh_tpu_torch.probes import mt_ablation as ma  # noqa: E402
 from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 from test_torch_cuda import (  # noqa: E402
-    CHAIN_MAPS, CHAIN_ROUNDS, LANE_EDGE_CASES, SUM_EDGES, chain_map,
-    lane_edge_inputs, sum_inputs)
+    CHAIN_MAPS, CHAIN_ROUNDS, FLAT_SHAPES, FLAT_TABLES, LANE_EDGE_CASES,
+    SUM_EDGES, chain_map, flat_edge_inputs, lane_edge_inputs, sum_inputs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, K_CAP, KPT = 8, 64, 40
@@ -126,16 +130,36 @@ def test_gather_twin_matches_jax_probe(probes, form):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("form,OW", [("B", 1024), ("B2", 128)])
+@pytest.mark.parametrize("form,OW", [("A", 128), ("B", 1024), ("B2", 128)])
 @pytest.mark.parametrize("case", LANE_EDGE_CASES)
 def test_lane_twin_matches_jax_probe_on_edge_cases(probes, case, form, OW):
-    t, i = lane_edge_inputs(case, OW)
+    t, i = lane_edge_inputs(case, OW, TW=hg.W if form == "A" else 1024)
     body = getattr(probes["pallas_gather_probe2"], f"k{form}")
     ref = _interpret(body, (hg.F, OW), jnp.float32, jnp.asarray(t),
                      jnp.asarray(i))
     before = dict(hg.LAUNCHES)
     got = hg.lane_gather(torch.from_numpy(t), torch.from_numpy(i))
     assert hg.LAUNCHES == before          # the CPU runs the twin
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape", FLAT_SHAPES)
+@pytest.mark.parametrize("table", list(FLAT_TABLES))
+def test_flat_twin_matches_jax_probe_on_edge_cases(probes, table, shape):
+    """H-E's twin against kE (jnp.take) on the tables of both kernel paths
+    (the offset case as a view one float into its storage), with the
+    indices 0 and N - 1 among any two or more."""
+    flat, i = flat_edge_inputs(table, shape)
+    body = probes["pallas_gather_probe2"].kE
+    ref = _interpret(body, shape, jnp.float32, jnp.asarray(flat),
+                     jnp.asarray(i))
+    t = torch.from_numpy(flat)
+    if table == "general-offset":
+        t = torch.cat([torch.zeros(1), t])[1:]
+    before = dict(hg.LAUNCHES)
+    got = hg.flat_take(t, torch.from_numpy(i))
+    assert hg.LAUNCHES == before          # the CPU runs the twin
+    assert got.shape == shape
     np.testing.assert_array_equal(got.numpy(), ref)
 
 

@@ -9,12 +9,14 @@
 // from device memory (resident in L2) where it does not:
 //   row    out[r] = table[idx[r], :]: 16-byte loads, 12 per 48-lane row;
 //   col    out[r] = a[r, col[r]]: one thread per row;
-//   lane   o[f, l] = t[f, i[f, l]] (A, B, B2): A's (8, 128) table staged
-//          whole in shared memory (4 KB) by one CTA; B's and B2's (8, 1024)
-//          table one row per CTA of a (row, output slice) grid (see below);
+//   lane   o[f, l] = t[f, i[f, l]] (A, B, B2): one row of the table per
+//          CTA of a (output slice, row) grid, staged in shared memory with
+//          the CTA's indices in the same phase (see below);
 //   sub    o[s, l] = t[i[s, l], l] (C): the (512, 128) table (256 KB, more
 //          than one SM's shared memory) read from device memory;
-//   flat   o = flat[i] (E);
+//   flat   o = flat[i] (E): a table of up to 8,192 floats copied whole into
+//          each CTA's shared memory with its indices in the same phase,
+//          any other read from L2 after the index (see below);
 //   chain  A composed 100 times (A100): o[f, l] = t[f, i^100(l)], the
 //          index map composed by doubling in shared memory, one warp a
 //          row (see below);
@@ -72,7 +74,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kF = 8;        // rows of the lane-gather tables (sublanes)
 constexpr int kW = 128;      // lanes of the A and chain tables
-constexpr int kCta = kF * kW;  // one thread per element of an (8, 128) block
 
 int blocks(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
@@ -94,15 +95,34 @@ __global__ void col_gather(const float* __restrict__ a,
   if (r < R) out[r] = a[(long long)r * C + col[r]];
 }
 
-// o (kF, OW)[f, l] = t (kF, kW)[f, i[f, l]] (A), the table in shared memory.
-__global__ void __launch_bounds__(kCta)
+// ---- A: lane gathers of an (8, 128) table -------------------------------
+//
+// o (kF, OW)[f, l] = t (kF, kW)[f, i[f, l]]. A few KB move, so a launch is
+// bound by its fixed cost and its dependent chain, not by bytes. The grid
+// is (OW / 128 slices, 8 rows), one output a thread: 8 CTAs of 128 threads
+// at the probe's shape (OW = 128). A CTA stages its row (512 B, one scalar
+// load a thread, so t needs no alignment) while the same thread's index
+// load is in flight: one L2 round trip, a barrier over 4 warps, a shared
+// lookup and a coalesced store. The last slice may be partial: its threads
+// past OW stage their lane of the row and store nothing. On an H100 80GB
+// HBM3 at 700 W this took 0.001185 ms of device time at the probe's shape.
+// Rejected: one warp a (row, 32 outputs) taking t[f, k] from lane k / 4's
+// float4 by four shuffles, no shared memory and no barrier, 0.001216 with
+// four warps a CTA and 0.001252-0.001265 with one; the row staged by 32
+// 16-byte loads 0.001227; one CTA of 1,024 threads for the whole table,
+// its index loads after its barrier, 0.001646 (PERF.md, Findings).
+__global__ void __launch_bounds__(kW)
 lane_gather(const float* __restrict__ t, const int* __restrict__ i,
             float* __restrict__ o, int OW) {
-  __shared__ float tab[kF * kW];
-  for (int e = threadIdx.x; e < kF * kW; e += kCta) tab[e] = t[e];
+  __shared__ float row[kW];
+  const int f = blockIdx.y;
+  const int l = blockIdx.x * kW + threadIdx.x;
+  const bool live = l < OW;
+  const long long e = (long long)f * OW + l;
+  const int k = live ? i[e] : 0;
+  row[threadIdx.x] = t[f * kW + threadIdx.x];
   __syncthreads();
-  for (int e = threadIdx.x; e < kF * OW; e += kCta)
-    o[e] = tab[(e / OW) * kW + i[e]];
+  if (live) o[e] = row[k];
 }
 
 // ---- B, B2: lane gathers of an (8, 1024) table ---------------------------
@@ -142,6 +162,51 @@ __global__ void sublane_gather(const float* __restrict__ t,
                                float* __restrict__ o, int S, int W) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e < S * W) o[e] = t[(long long)i[e] * W + e % W];
+}
+
+// ---- E: flat take --------------------------------------------------------
+//
+// o = flat (N,)[i], n outputs of any index shape, one a thread in CTAs of
+// 256. Two paths, chosen by the C entry from the shape:
+//   staged (N <= kFlatStageMax, N % 4 == 0, flat 16-byte aligned, and the
+//     CTAs' copies together at most kFlatStageCopies floats): each CTA
+//     copies the whole table into dynamic shared memory (N * 4 B) by
+//     16-byte cp.async, N / 1,024 a thread (2 at the probe's N = 2,048)
+//     as straight-line predicated copies, while the thread's index load
+//     is in flight; then one barrier, a shared lookup and a coalesced
+//     store: one L2 round trip on the chain;
+//   general, any other shape: the index, then flat[i] from L2, two
+//     dependent round trips.
+// On an H100 80GB HBM3 at 700 W the staged path took 0.001290 ms of device
+// time at the probe's shape and the general one 0.001380. Rejected: CTAs
+// of 128 threads (4 copies a thread, twice the copies) 0.001322, of 512
+// 0.001308; the copies as a runtime loop 0.001296 (0.001394 against
+// 0.001361 at N = 8,192); 16-byte loads into registers, then shared
+// stores, 0.001307. The copies grow with the CTAs: the two paths came
+// within 4% of each other at 16 MB in all (131,072 outputs of 8,192
+// floats), and at 32 MB (1,048,576 of 2,048) the staged form took 1.54x
+// the general one (PERF.md, Findings).
+constexpr int kFlatStageMax = 8192;          // floats a CTA stages (32 KB)
+constexpr int kFlatCopies = kFlatStageMax / 4 / kThreads;  // a thread's most
+constexpr long long kFlatStageCopies = 1 << 22;  // floats all CTAs copy
+
+__global__ void __launch_bounds__(kThreads)
+flat_take_staged(const float* __restrict__ flat, const int* __restrict__ i,
+                 float* __restrict__ o, int n, int N) {
+  extern __shared__ __align__(16) float tab[];
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const int k = e < n ? i[e] : 0;
+#pragma unroll
+  for (int u = 0; u < kFlatCopies; ++u) {
+    const int q = threadIdx.x + u * kThreads;
+    if (q < N / 4) cp_async16(tab + 4 * q, flat + 4 * q);
+  }
+  // the index is loaded while the copies fly: the empty asm needs it
+  // before the wait (a load of read-only data may otherwise sink below it)
+  asm volatile("" ::"r"(k));
+  cp_async_wait_all();
+  __syncthreads();
+  if (e < n) o[e] = tab[k];
 }
 
 __global__ void flat_take(const float* __restrict__ flat,
@@ -455,7 +520,8 @@ extern "C" int tbvh_gather_lane(const float* t, const int* i, float* o,
   const cudaStream_t s = (cudaStream_t)stream;
   if (OW <= 0) return (int)cudaErrorInvalidValue;
   if (TW == tbvh::kW) {
-    tbvh::lane_gather<<<1, tbvh::kCta, 0, s>>>(t, i, o, OW);
+    const dim3 grid(tbvh::blocks(OW, tbvh::kW), tbvh::kF);
+    tbvh::lane_gather<<<grid, tbvh::kW, 0, s>>>(t, i, o, OW);
   } else if (TW == tbvh::kLaneRow &&
              reinterpret_cast<std::uintptr_t>(t) % 16 == 0) {
     const dim3 grid(tbvh::blocks(OW, tbvh::kLaneThreads), tbvh::kF);
@@ -476,12 +542,20 @@ extern "C" int tbvh_gather_sublane(const float* t, const int* i, float* o,
   return tbvh::launched();
 }
 
-// flat (N,) f32, i (n,) -> (n,).
+// flat (N,) f32, i (n,) in [0, N) -> (n,): by the staged path where the
+// shape allows it (see above), else by the general one.
 extern "C" int tbvh_gather_flat(const float* flat, const int* i, float* o,
-                                int n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  tbvh::flat_take<<<tbvh::blocks(n, tbvh::kThreads), tbvh::kThreads, 0,
-                    (cudaStream_t)stream>>>(flat, i, o, n);
+                                int n, int N, void* stream) {
+  if (n <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int grid = tbvh::blocks(n, tbvh::kThreads);
+  if (N <= tbvh::kFlatStageMax && N % 4 == 0 &&
+      reinterpret_cast<std::uintptr_t>(flat) % 16 == 0 &&
+      (long long)grid * N <= tbvh::kFlatStageCopies)
+    tbvh::flat_take_staged<<<grid, tbvh::kThreads, N * sizeof(float), s>>>(
+        flat, i, o, n, N);
+  else
+    tbvh::flat_take<<<grid, tbvh::kThreads, 0, s>>>(flat, i, o, n);
   return tbvh::launched();
 }
 
@@ -521,12 +595,25 @@ extern "C" int tbvh_gather_empty(void* stream) {
   return tbvh::launched();
 }
 
-// The resources of the 1,024-wide lane kernel (B, B2), of the chain
+// The resources of the lane kernel at table width TW (128: A; 1024: B,
+// B2), of the flat take's staged path at table length N, of the chain
 // kernel and of the sum kernel's staged path (the probe's).
-extern "C" int tbvh_gather_lane_occupancy(int* out) {
+extern "C" int tbvh_gather_lane_occupancy(int TW, int* out) {
+  if (TW == tbvh::kW)
+    return tbvh::kernel_occupancy(
+        reinterpret_cast<const void*>(&tbvh::lane_gather), tbvh::kW, 0, out);
+  if (TW == tbvh::kLaneRow)
+    return tbvh::kernel_occupancy(
+        reinterpret_cast<const void*>(&tbvh::lane_gather_row),
+        tbvh::kLaneThreads, 0, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int tbvh_gather_flat_occupancy(int N, int* out) {
+  if (N <= 0 || N > tbvh::kFlatStageMax) return (int)cudaErrorInvalidValue;
   return tbvh::kernel_occupancy(
-      reinterpret_cast<const void*>(&tbvh::lane_gather_row),
-      tbvh::kLaneThreads, 0, out);
+      reinterpret_cast<const void*>(&tbvh::flat_take_staged), tbvh::kThreads,
+      N * (int)sizeof(float), out);
 }
 
 extern "C" int tbvh_gather_chain_occupancy(int* out) {

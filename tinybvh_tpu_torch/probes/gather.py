@@ -107,9 +107,10 @@ def _lane_plain(t, i):
 
 
 def lane_gather(t, i):
-    """At TW = 1024 (B, B2) the kernel runs one CTA per (row, 256 outputs)
-    and stages only that row, by 16-byte loads: t must be 16-byte
-    aligned."""
+    """The kernel runs one CTA per (row, output slice) and stages only that
+    row: at TW = 128 (A) 128 outputs a CTA, one scalar load a thread; at
+    TW = 1024 (B, B2) 256 outputs a CTA, by 16-byte loads, so a 1024-wide
+    t must be 16-byte aligned."""
     if not _on_cuda("lane_gather", t, i):
         return _lane_plain(t, i)
     TW, OW = t.shape[1], i.shape[1]
@@ -148,12 +149,16 @@ def _flat_plain(flat, i):
 
 
 def flat_take(flat, i):
+    """The C entry stages the whole table in each CTA's shared memory where
+    it is short (at most 8,192 floats, a multiple of 4, 16-byte aligned,
+    16 MB of copies in all); any other table is read from L2."""
     if not _on_cuda("flat_take", flat, i):
         return _flat_plain(flat, i)
     _check("flat table", flat, torch.float32, (flat.shape[0],))
     _check("flat i", i, torch.int32, tuple(i.shape))
     out = torch.empty(i.shape, dtype=torch.float32, device=flat.device)
-    _launch("flat_take", "tbvh_gather_flat", flat, i, out, i.numel())
+    _launch("flat_take", "tbvh_gather_flat", flat, i, out, i.numel(),
+            flat.shape[0])
     return out
 
 
