@@ -100,12 +100,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (index_select, gather, take, or for D torch.mm of 10 x the one-hot
      matrix in f32 with t in f32, equal to the kernel; events and a CUDA
      graph, as the kernel) and its bound; the launch floor (an empty
-     kernel's device time) and, for the redesigned H-A, H-B, H-B2, H-E,
-     H-A100 and H-C100, the device time of each kernel (and of H-A100's
-     at 0 rounds, and of H-E's general path on a 2,049-float table), each
-     output checked, what sets the pace, and their occupancy (the lane
-     kernel at widths 128 and 1,024, H-E's staged path); H-D's
-     occupancy.
+     kernel's device time) and, for the redesigned H-A, H-B, H-B2, H-C,
+     H-col, H-E, H-A100 and H-C100, the device time of each kernel (and
+     of H-A100's at 0 rounds, of H-C's on 65,543 index rows (grid z), of
+     H-col's general path at 48 columns and at 8,193 rows and of H-E's on
+     a 2,049-float table), each output checked, what sets the pace, and
+     their occupancy (the lane kernel at widths 128 and 1,024, H-C, H-col's
+     rows path, H-E's staged path); H-D's occupancy.
      Kernel I, kernel
      B's tile loop in eight variants at 16, 64 and 256 clustered keys a
      tile and at 64 scattered ones (T = 1,600, k_cap 256, the random64k
@@ -2235,12 +2236,40 @@ def library_call(form, args):
     return None
 
 
-REDESIGNS = ("A", "B", "B2", "E", "A100", "C100")  # H forms given a design
+SECTOR = 32  # bytes: the least a read from device memory moves
+
+
+def gather_bytes(form, args, out):
+    """The bytes H form `form` must move on these arguments: each 32-byte
+    sector of its table that this run's indices pick (for C100, over all
+    its rounds; for A100, at the composed index), read once, its index
+    array read once and its output written once. The rest of the table
+    is never read."""
+    import torch
+    from tinybvh_tpu_torch.probes import gather
+
+    t, idx = args
+    pos = torch.arange(t.numel(), device=t.device).reshape(t.shape)
+    if form == "C100":
+        picked = torch.cat([pos.gather(0, ((idx + s) % t.shape[0]).long())
+                            for s in range(gather.ROUNDS)])
+    elif form.startswith("D"):
+        picked = pos[idx.long()]
+    else:
+        picked = gather.FORMS[form].plain(pos, idx)
+    sectors = torch.unique(picked * t.element_size() // SECTOR).numel()
+    return sectors * SECTOR + nbytes((idx, out))
+
+
+# H forms given a design
+REDESIGNS = ("A", "B", "B2", "C", "col", "E", "A100", "C100")
 # what a redesigned form's time above the launch floor pays for, where no
 # call of it at 0 rounds splits it
 REDESIGN_REST = {"A": "its row's staging and lookup",
                  "B": "its row's staging and lookup",
                  "B2": "its row's staging and lookup",
+                 "C": "its index and data round trips",
+                 "col": "its rows' load and pick",
                  "E": "its table's staging and lookup",
                  "C100": "its staging and rounds"}
 
@@ -2250,8 +2279,10 @@ def redesign_calls(form, args):
     callable, expected output)}, the wrapper's call first; for A100, its
     kernel at 0 rounds through the C entry (its fixed part: loads and
     stores); for E, its general path on the table with one float more
-    (2,049, not a multiple of 4: the same outputs). Each call writes a
-    buffer of its own."""
+    (2,049, not a multiple of 4: the same outputs); for col, its general
+    path on the table widened to 48 columns (the same outputs) and on
+    8,193 rows, one past its rows path's 2^18 floats; for C, the kernel on
+    65,543 index rows (grid z). Each call writes a buffer of its own."""
     import torch
     from tinybvh_tpu_torch.probes import gather
 
@@ -2259,6 +2290,24 @@ def redesign_calls(form, args):
     ref = gather.FORMS[form].plain(t, i)
     if form in ("A", "B", "B2"):
         return {"row slices": (lambda: gather.lane_gather(t, i), ref)}
+    if form == "C":
+        iz = i[torch.arange(65543, device=t.device) % i.shape[0]]
+        return {"(W / 128, S) grid": (lambda: gather.sublane_gather(t, i),
+                                      ref),
+                "65,543 index rows (grid z)": (
+                    lambda: gather.sublane_gather(t, iz),
+                    gather._sublane_plain(t, iz))}
+    if form == "col":
+        wide = torch.cat([t, torch.zeros_like(t[:, :16])], 1)
+        rows = torch.arange(8193, device=t.device) % t.shape[0]
+        tall, col_tall = t[rows], i[rows]
+        return {"rows (4 lanes a row)": (lambda: gather.col_gather(t, i),
+                                         ref),
+                "general (C = 48)": (lambda: gather.col_gather(wide, i),
+                                     ref),
+                "general (R = 8,193)": (
+                    lambda: gather.col_gather(tall, col_tall),
+                    gather._col_plain(tall, col_tall))}
     if form == "E":
         longer = torch.cat([t, t[:1]])
         return {"staged": (lambda: gather.flat_take(t, i), ref),
@@ -2323,6 +2372,8 @@ def phase_redesigns(h, kern, gpu_line, n=3):
     for (entry, *args), form in (
             (("tbvh_gather_lane_occupancy", gather.W), "A"),
             (("tbvh_gather_lane_occupancy", 1024), "B / H-B2"),
+            (("tbvh_gather_sublane_occupancy",), "C"),
+            (("tbvh_gather_col_occupancy",), "col (rows path)"),
             (("tbvh_gather_flat_occupancy", n_flat),
              f"E (staged, N = {n_flat})"),
             (("tbvh_gather_chain_occupancy",), "A100"),
@@ -2379,7 +2430,7 @@ def phase_probes(bvh, gpu_line, n_plain=20):
             library_device_ms=(device_ms(lib, 200)
                                if lib and dev.type == "cuda" else None),
             device_ms=r["device_ms"], graph_runs=r["graph_runs"],
-            **bound_of(nbytes(r["args"]) + nbytes((r["out"],)), ops))
+            **bound_of(gather_bytes(form, r["args"], r["out"]), ops))
         launches[name] = r["launches"]
         k = kern[name]
         lib_txt = (f"{ms_text(k['library_ms'])} (device "

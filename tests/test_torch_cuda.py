@@ -1699,6 +1699,112 @@ def test_flat_kernel_at_the_copies_limit(N, n):
     assert torch.equal(got, hg._flat_plain(t, i))
 
 
+# H-C's kernel (one output a thread of a (W / 128, S) grid with index rows
+# past SUB_GRID_Y_MAX in grid z; any alignment), also where W is below a
+# lane slice of SUB_LANES; and
+# H-col's on both of its paths: rows where C is a multiple of 4 and at most
+# COL_ROW_MAX, a is 16-byte aligned and R * C is at most COL_ROW_FLOATS,
+# else the general one (tests/test_torch_probes.py holds the twins to the
+# JAX probe's kC and to pallas_gather_probe.py's numpy expression on the
+# same cases)
+SUB_LANES = 128              # kSubThreads of csrc/gather_probe.cu
+SUB_GRID_Y_MAX = 65535       # kGridYMax
+COL_ROW_MAX = 32             # kColRowMax
+COL_ROW_FLOATS = 1 << 18     # kColRowFloats
+SUB_CASES = {"probe": (512, 128, 8), "S1": (512, 128, 1),
+             "S7": (512, 128, 7), "S32": (512, 128, 32),
+             "N100": (100, 128, 8), "N1024": (1024, 128, 8),
+             "N1025": (1025, 128, 8), "W130": (512, 130, 8),
+             "offset": (512, 128, 8),   # a view one float past 16 bytes
+             "grid-z": (64, SUB_LANES, SUB_GRID_Y_MAX + 10),
+             "W127": (512, SUB_LANES - 1, 8),
+             "W3": (64, 3, 1000),
+             "W1-grid-z": (512, 1, SUB_GRID_Y_MAX + 8)}
+COL_CASES = {"rows-probe": (4096, 32), "rows-C4": (4096, 4),
+             "rows-C8": (4096, 8), "rows-R1": (1, 32),
+             "rows-R129": (129, 32),
+             "rows-max": (COL_ROW_FLOATS // 32, 32),
+             "general-max+1": (COL_ROW_FLOATS // 32 + 1, 32),
+             "general-R131072": (131072, 32), "general-C48": (4096, 48),
+             "general-C33": (4096, 33),
+             "general-offset": (4096, 32)}   # a view one float past 16 B
+
+
+def sub_edge_inputs(case, seed=0):
+    """(t (N, W) f32, i (S, W) int32) numpy for SUB_CASES[case]: t uniform
+    plus its row number, so that a wrong row shows; i uniform in [0, N)
+    with 0 in the first index row and N - 1 in the last (one index row:
+    0 and N - 1 alternating)."""
+    N, W, S = SUB_CASES[case]
+    rng = np.random.default_rng(seed)
+    t = (rng.random((N, W), dtype=np.float32)
+         + np.arange(N, dtype=np.float32)[:, None])
+    i = rng.integers(0, N, (S, W), dtype=np.int32)
+    if S == 1:
+        i[0] = np.where(np.arange(W) % 2 == 0, 0, N - 1)
+    else:
+        i[0], i[-1] = 0, N - 1
+    return t, i
+
+
+def col_edge_inputs(case, seed=0):
+    """(a (R, C) f32, col (R,) int32) numpy for COL_CASES[case]: a uniform
+    plus its row number mod 1,024; col uniform in [0, C) with 0 and C - 1
+    on every third row each (one row: C - 1)."""
+    R, C = COL_CASES[case]
+    rng = np.random.default_rng(seed)
+    a = (rng.random((R, C), dtype=np.float32)
+         + (np.arange(R) % 1024).astype(np.float32)[:, None])
+    col = rng.integers(0, C, R, dtype=np.int32)
+    col[::3] = C - 1
+    col[1::3] = 0
+    return a, col
+
+
+def offset_view(x, device):
+    """numpy x copied into a tensor on `device` that starts one float past
+    a 16-byte boundary."""
+    base = torch.zeros(x.size + 1, device=device)
+    view = base[1:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    assert view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("case", list(SUB_CASES))
+def test_sublane_kernel_edge_cases(case):
+    """H-C's kernel at the probe's shape, at 1, 7, 32 and 65,545 index
+    rows (grid z), at N = 100, 1,024 and 1,025, at W = 130, 127, 3 and 1
+    (65,543 index rows) and on a misaligned table: equal to the twin bit
+    for bit, one launch counted, none for a call captured in a CUDA graph,
+    whose replay computes the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    t, i = sub_edge_inputs(case)
+    t = (offset_view(t, "cuda") if case == "offset"
+         else torch.from_numpy(t).cuda())
+    i = torch.from_numpy(i).cuda()
+    _counted_and_replayed("sublane_gather", lambda: hg.sublane_gather(t, i),
+                          hg._sublane_plain(t, i))
+
+
+@pytest.mark.parametrize("case", list(COL_CASES))
+def test_col_kernel_edge_cases(case):
+    """H-col's kernel on its rows path (C = 32, 4 and 8; R = 1, 129 and
+    COL_ROW_FLOATS / 32) and its general one (one row more, R = 131,072,
+    C = 48 and 33, a misaligned a): equal to the twin bit for bit, one
+    launch counted, none for a call captured in a CUDA graph, whose replay
+    computes the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    a, col = col_edge_inputs(case)
+    a = (offset_view(a, "cuda") if case == "general-offset"
+         else torch.from_numpy(a).cuda())
+    col = torch.from_numpy(col).cuda()
+    _counted_and_replayed("col_gather", lambda: hg.col_gather(a, col),
+                          hg._col_plain(a, col))
+
+
 def test_launch_floor_is_measured():
     """The empty kernel launches and its device time is above zero."""
     if not torch.cuda.is_available():
@@ -1806,6 +1912,24 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
                        ("tbvh_gather_flat_occupancy", FLAT_STAGE_MAX + 4)):
         with pytest.raises(RuntimeError):  # no such kernel or path
             _build.occupancy(entry, arg)
+    t, i = gather_inputs["C"]
+    with pytest.raises(TypeError):
+        hg.sublane_gather(t.double(), i)
+    with pytest.raises(ValueError):   # index rows as wide as the table
+        hg.sublane_gather(t, i[:, :100].contiguous())
+    for S, Wt in ((0, hg.W), (hg.F, 0), (-1, hg.W)):
+        with pytest.raises(RuntimeError):  # the C entry's own check
+            hg._launch("sublane_gather", "tbvh_gather_sublane", t, i,
+                       torch.empty(i.shape, device="cuda"), S, Wt)
+    a, col = gather_inputs["col"]
+    with pytest.raises(TypeError):
+        hg.col_gather(a, col.long())
+    with pytest.raises(ValueError):   # one index a row
+        hg.col_gather(a, col[:100].contiguous())
+    for R, C in ((0, 32), (a.shape[0], 0), (a.shape[0], -4)):
+        with pytest.raises(RuntimeError):  # the C entry's own check
+            hg._launch("col_gather", "tbvh_gather_col", a, col,
+                       torch.empty(col.shape, device="cuda"), R, C)
     t, idx = gather_inputs["D2048"]
     with pytest.raises(TypeError):
         hg.onehot_gather(t.float(), idx)

@@ -95,7 +95,7 @@ def scene():
     table, port table)}."""
     tris = random_tris(3000, seed=0)
     jb = tb.BVH(tris)
-    bvh8, _ = from_numpy_tables(jb.bvh8, jb.packet_aux)
+    bvh8, _ = from_numpy_tables(jb.bvh8, jb.packet_aux, device="cpu")
     maps = {}
     for S in (4, 8, 16):
         jl = jom.leaf_align(jom.bake_omap(3000, leaf_alpha, S=S), jb.bvh8)
@@ -282,7 +282,7 @@ def alpha_quad():
     both packages (the port's micromaps from its own bakers)."""
     tris = np.concatenate([_quad(1.0), _quad(3.0)])
     jb8 = collapse_bvh2(build_binned(tris, max_leaf=4), tris)
-    bvh8 = from_numpy_bvh8(jb8)
+    bvh8 = from_numpy_bvh8(jb8, device="cpu")
     tex = (np.indices((8, 8)).sum(axis=0) % 2 == 0).astype(np.float32)
     uv = np.zeros((4, 3, 2), np.float32)
     uv[0] = [[0, 0], [1, 0], [0, 1]]
@@ -361,7 +361,7 @@ def test_packet2_omap_absent_is_noop():
     """An all-opaque micromap gives the prims of no micromap, as JAX's."""
     tris = random_tris(500, seed=3)
     jb8 = collapse_bvh2(build_binned(tris, max_leaf=4), tris)
-    bvh8 = from_numpy_bvh8(jb8)
+    bvh8 = from_numpy_bvh8(jb8, device="cpu")
     om = pom.bake_omap(500, lambda p, u, v: np.ones_like(p, bool), S=4,
                        device="cpu")
     aux_o = p2.build_packet_aux(bvh8, omap=pom.leaf_align(om, bvh8))
@@ -387,7 +387,7 @@ def test_packet2_omap_absent_is_noop():
 def test_omap_half_transparent_triangle():
     tris = np.array([[[0, 0, 0], [4, 0, 0], [0, 4, 0]]], np.float32)
     jb8 = collapse_bvh2(build_binned(tris, max_leaf=4), tris)
-    bvh8 = from_numpy_bvh8(jb8)
+    bvh8 = from_numpy_bvh8(jb8, device="cpu")
     om = pom.bake_omap(1, lambda p, u, v: u < 0.5, S=16, device="cpu")
     pl = pom.leaf_align(om, bvh8)
     o = np.array([[0.8, 0.4, -1.0], [3.2, 0.4, -1.0]], np.float32)
@@ -406,7 +406,7 @@ def test_omap_reveals_triangle_behind():
         [[[0, 0, 0], [4, 0, 0], [0, 4, 0]],
          [[0, 0, 2], [4, 0, 2], [0, 4, 2]]], np.float32)
     jb8 = collapse_bvh2(build_binned(tris, max_leaf=4), tris)
-    bvh8 = from_numpy_bvh8(jb8)
+    bvh8 = from_numpy_bvh8(jb8, device="cpu")
     alpha = (lambda p, u, v: p == 1)     # triangle 0 fully transparent
     pl = pom.leaf_align(pom.bake_omap(2, alpha, S=8, device="cpu"), bvh8)
     o, d = [[0.5, 0.5, -1.0]], [[0, 0, 1.0]]
@@ -564,7 +564,7 @@ def inst_omap():
     jl = jom.leaf_align(jom.bake_omap(n, leaf_alpha, S=8), jb.bvh8)
     jtp = jpk.build_tlas_packet([jb.bvh8], _MATS, omaps=[_np(jl)],
                                 host8s=[jb._bvh8_host])
-    return tris, jb, jtp, from_numpy_tlas_packet(jtp)
+    return tris, jb, jtp, from_numpy_tlas_packet(jtp, device="cpu")
 
 
 def test_build_tlas_packet_omaps_matches_jax(inst_omap):

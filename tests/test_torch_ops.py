@@ -86,7 +86,7 @@ def test_sphere_query_matches_brute_force_and_jax(leaf):
     rng = np.random.default_rng(3)
     tris = random_tris(600, seed=3)
     jbvh = j_build_binned(tris, max_leaf=leaf)
-    bvh = from_numpy_bvh2(jbvh)
+    bvh = from_numpy_bvh2(jbvh, device="cpu")
     packed = pack_tris(bvh, tris)
     q = 128
     centers = rng.uniform(-1, 11, (q, 3)).astype(np.float32)
@@ -137,7 +137,7 @@ def test_custom_sphere_primitives():
     centers, radii = _spheres(rng)
     jbvh = j_build_aabbs(centers - radii[:, None], centers + radii[:, None],
                          max_leaf=4)
-    bvh = from_numpy_bvh2(jbvh)
+    bvh = from_numpy_bvh2(jbvh, device="cpu")
     o = rng.uniform(-2, 12, (256, 3)).astype(np.float32)
     d = rng.normal(size=(256, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -285,7 +285,8 @@ def test_voxel_set_allocation_matches_jax():
     jf, pf = jv.freeze(), pv.freeze(device="cpu")
     for k in jf:
         np.testing.assert_array_equal(_np(pf[k]), _np(jf[k]), err_msg=k)
-    carried = from_numpy_voxels({k: _np(a) for k, a in jf.items()})
+    carried = from_numpy_voxels({k: _np(a) for k, a in jf.items()},
+                                device="cpu")
     for k in pf:
         assert torch.equal(carried[k], pf[k]), k
 

@@ -93,7 +93,7 @@ def _scene(name):
         jb8 = collapse_bvh2(build_binned(tris, max_leaf=4), tris)
         lo, hi = tris.min(axis=(0, 1)), tris.max(axis=(0, 1))
         o, d = _wide_rays(96) if name == "wide" else _tiled_rays(lo, hi)
-        _SCENES[name] = (tris, jb8, from_numpy_bvh8(jb8), o, d)
+        _SCENES[name] = (tris, jb8, from_numpy_bvh8(jb8, device="cpu"), o, d)
     return _SCENES[name]
 
 

@@ -52,7 +52,7 @@ def scene():
     tables carried into the port with from_numpy_tables."""
     tris = random_tris(3000, seed=0)
     jb = tb.BVH(tris)
-    bvh8, aux = from_numpy_tables(jb.bvh8, jb.packet_aux)
+    bvh8, aux = from_numpy_tables(jb.bvh8, jb.packet_aux, device="cpu")
     return tris, jb, bvh8, aux
 
 

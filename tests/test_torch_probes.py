@@ -11,7 +11,12 @@ that differ everywhere), at the probes' output widths, and of H-A
 against `kA` on the same cases at its 128-wide table; the flat twin of
 H-E against `kE` on the tables of both of its kernel's paths (N = 4,
 2,048, 8,192, 2,049, 8,196 and an offset view) at index shapes (8, 128),
-(1,), (1000,) and (8, 129).
+(1,), (1000,) and (8, 129); the sublane twin of H-C against `kC` and the
+col twin of H-col against the probe's numpy expression on the constructed
+cases of tests/test_torch_cuda.py (SUB_CASES, COL_CASES).
+
+Every convert.from_numpy_* on small JAX objects: without a card and
+without `device` it raises; with device="cpu" it returns CPU tensors.
 
 What the redesigned H-A100 and H-C100 kernels rely on, against numpy:
 R chained lane gathers are the row's index map composed R times (the
@@ -31,6 +36,7 @@ in interpret mode); the port defines it, and they are held to
 invariants instead.
 """
 
+import dataclasses
 import functools
 import importlib.util
 import os
@@ -46,15 +52,22 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 import tinybvh_tpu as tb  # noqa: E402
+from tinybvh_tpu.builders.binned import (  # noqa: E402
+    build_binned as j_build_binned)
+from tinybvh_tpu.ops import voxel as jvx  # noqa: E402
+from tinybvh_tpu.tlas import instance as ji  # noqa: E402
+from tinybvh_tpu.tlas import packet as jpk  # noqa: E402
 from tinybvh_tpu.traverse import packet2 as jp2  # noqa: E402
-from tinybvh_tpu_torch import BVH  # noqa: E402
+from tinybvh_tpu_torch import BVH, convert  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
 from tinybvh_tpu_torch.probes import gather as hg  # noqa: E402
 from tinybvh_tpu_torch.probes import mt_ablation as ma  # noqa: E402
 from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 from test_torch_cuda import (  # noqa: E402
-    CHAIN_MAPS, CHAIN_ROUNDS, FLAT_SHAPES, FLAT_TABLES, LANE_EDGE_CASES,
-    SUM_EDGES, chain_map, flat_edge_inputs, lane_edge_inputs, sum_inputs)
+    CHAIN_MAPS, CHAIN_ROUNDS, COL_CASES, FLAT_SHAPES, FLAT_TABLES,
+    LANE_EDGE_CASES, SUB_CASES, SUM_EDGES, chain_map, col_edge_inputs,
+    flat_edge_inputs, lane_edge_inputs, offset_view, sub_edge_inputs,
+    sum_inputs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, K_CAP, KPT = 8, 64, 40
@@ -163,6 +176,40 @@ def test_flat_twin_matches_jax_probe_on_edge_cases(probes, table, shape):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("case", list(SUB_CASES))
+def test_sublane_twin_matches_jax_probe_on_edge_cases(probes, case):
+    """H-C's twin against kC (take_along_axis on axis 0) on the constructed
+    cases of tests/test_torch_cuda.py (the indices 0 and N - 1 in every
+    column; rows that differ everywhere; a misaligned view; 65,545 index
+    rows)."""
+    t, i = sub_edge_inputs(case)
+    body = probes["pallas_gather_probe2"].kC
+    ref = _interpret(body, i.shape, jnp.float32, jnp.asarray(t),
+                     jnp.asarray(i))
+    tt = (offset_view(t, "cpu") if case == "offset"
+          else torch.from_numpy(t))
+    before = dict(hg.LAUNCHES)
+    got = hg.sublane_gather(tt, torch.from_numpy(i))
+    assert hg.LAUNCHES == before          # the CPU runs the twin
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("case", list(COL_CASES))
+def test_col_twin_matches_probe_expression_on_edge_cases(case):
+    """H-col's twin against the probe's numpy expression
+    (pallas_gather_probe.py:71) on the constructed cases of both kernel
+    paths of tests/test_torch_cuda.py (columns 0 and C - 1 among the
+    indices; a misaligned view)."""
+    a, col = col_edge_inputs(case)
+    ref = np.take_along_axis(a, col[:, None], 1)[:, 0]
+    at = (offset_view(a, "cpu") if case == "general-offset"
+          else torch.from_numpy(a))
+    before = dict(hg.LAUNCHES)
+    got = hg.col_gather(at, torch.from_numpy(col))
+    assert hg.LAUNCHES == before          # the CPU runs the twin
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_gather_col_twin_matches_probe_expression():
     """`kernel2` is nested in the probe's main(); its reference is the
     probe's numpy expression (pallas_gather_probe.py:71)."""
@@ -237,6 +284,54 @@ def test_probe_inputs_need_a_card_or_cpu(monkeypatch):
         hg.make_inputs()
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ma.make_inputs(100, T=8, keys_per_tile=16, k_cap=64)
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """Small JAX objects of every kind convert.py carries: a BVH8 with its
+    PacketAux, a BVH2, a micromap table, a frozen VoxelSet, a TLAS8 and a
+    TLASPacket of two instances of the BVH8."""
+    tris = random_tris(64, seed=0)
+    jb = tb.BVH(tris)
+    mats = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    mats[1, 0, 3] = 3.0
+    vox = jvx.VoxelSet()
+    vox.set([1, 2, 3], [4, 5, 6], [7, 8, 9])
+    return {"bvh8": (jb.bvh8,), "bvh2": (j_build_binned(tris),),
+            "omap": (np.random.default_rng(0).random((4, 8, 8)) < 0.5,),
+            "aux": (jb.packet_aux,),
+            "voxels": ({k: np.asarray(a) for k, a in vox.freeze().items()},),
+            "tables": (jb.bvh8, jb.packet_aux),
+            "tlas8": (ji.build_tlas([jb.bvh8], mats),),
+            "tlas_packet": (jpk.build_tlas_packet(
+                [jb.bvh8], mats, host8s=[jb._bvh8_host]),)}
+
+
+def _tensors(x):
+    """Every tensor in x (dataclasses, tuples, lists and dicts of them)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+@pytest.mark.parametrize("kind", ["bvh8", "bvh2", "omap", "aux", "voxels",
+                                  "tables", "tlas8", "tlas_packet"])
+def test_convert_needs_a_card_or_cpu(monkeypatch, jax_state, kind):
+    """Every convert.from_numpy_* puts its tensors on the card unless asked:
+    without a CUDA device and without `device` it raises, naming
+    device="cpu"; with device="cpu" every tensor lies on the CPU."""
+    fn = getattr(convert, f"from_numpy_{kind}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn(*jax_state[kind])
+    got = _tensors(fn(*jax_state[kind], device="cpu"))
+    assert got and all(t.device.type == "cpu" for t in got)
 
 
 # ---- kernel I ---------------------------------------------------------------

@@ -193,7 +193,7 @@ def test_build_binned_aabbs_matches_jax():
 def test_bvh2_metrics_match_jax():
     tris = random_tris(4096, seed=1)
     jb = jbinned.build_binned(tris)
-    pb = from_numpy_bvh2(jb)
+    pb = from_numpy_bvh2(jb, device="cpu")
     assert float(sah_cost(pb)) == pytest.approx(float(jbvh2.sah_cost(jb)),
                                                 rel=1e-6)
     assert [int(x) for x in node_counts(pb)] == [
@@ -211,7 +211,7 @@ def deformed():
     tris = random_tris(1500, seed=23)
     jb = jbinned.build_binned(tris, max_leaf=4)
     moved = _moved(tris, rng)
-    return tris, moved, jb, from_numpy_bvh2(jb)
+    return tris, moved, jb, from_numpy_bvh2(jb, device="cpu")
 
 
 def test_refit_matches_jax(deformed):

@@ -186,7 +186,7 @@ class _Case:
     def __init__(self, name):
         tris, arrays, extra, (o, d) = _scene_case(name)
         self.jbvh = tb.BVH(tris, layout="bvh8").bvh8
-        self.pbvh = from_numpy_bvh8(self.jbvh)
+        self.pbvh = from_numpy_bvh8(self.jbvh, device="cpu")
         self.jscene = jpt.make_scene_arrays(tris, **arrays)
         self.pscene = ppt.make_scene_arrays(tris, device="cpu", **arrays)
         if "normals" in extra:
@@ -413,7 +413,7 @@ def test_render_matches_jax():
     against it."""
     tris, albedo, emissive = _cornell()
     jbvh = tb.BVH(tris, layout="bvh8").bvh8
-    pbvh = from_numpy_bvh8(jbvh)
+    pbvh = from_numpy_bvh8(jbvh, device="cpu")
     cam = jcam.look_at([1.0, 1.0, -2.5], [1.0, 1.0, 1.0])
     ref, ref_ovf = jpt.render(jbvh, jpt.make_scene_arrays(tris, albedo,
                                                           emissive),
@@ -436,7 +436,7 @@ def test_seeded_sampler_repeats_its_draws():
     """A Sampler.seeded draw sequence depends only on the seed: two runs
     of one frame agree bit for bit; another seed gives another frame."""
     tris, albedo, emissive = _cornell()
-    pbvh = from_numpy_bvh8(tb.BVH(tris, layout="bvh8").bvh8)
+    pbvh = from_numpy_bvh8(tb.BVH(tris, layout="bvh8").bvh8, device="cpu")
     scene = ppt.make_scene_arrays(tris, albedo, emissive, device="cpu")
     cam = pcam.look_at([1.0, 1.0, -2.5], [1.0, 1.0, 1.0])
     a, _ = ppt.render(pbvh, scene, *cam, 16, 16, spp=1, bounces=2,

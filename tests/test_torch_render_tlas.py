@@ -76,7 +76,7 @@ class _Scene:
         self.jblases = [tb.BVH(t, layout="bvh8").bvh8 for t in blas_tris]
         self.pairs = pairs
         self.jtlas = ji.build_tlas(self.jblases, pairs)
-        self.ptlas = from_numpy_tlas8(self.jtlas)
+        self.ptlas = from_numpy_tlas8(self.jtlas, device="cpu")
         self.args = (inst_albedo, inst_emissive, light_tris, light_emission)
         self._jtp = self._ptp = None
 
@@ -88,7 +88,8 @@ class _Scene:
     def port_tpacket(self):
         if self._ptp is None:
             self._ptp = build_tlas_packet(
-                [from_numpy_bvh8(b) for b in self.jblases], self.pairs,
+                [from_numpy_bvh8(b, device="cpu") for b in self.jblases],
+                self.pairs,
                 device="cpu")
         return self._ptp
 
@@ -177,7 +178,7 @@ def _run(sc, rays, seed, bounces, route="wavefront", specular=None,
         kw_j.update(leaf_uvs=ji.merge_leaf_attrs(sc.jblases, uvs),
                     leaf_tex=ji.merge_leaf_attrs(sc.jblases, tex_ids),
                     tex=jatlas(images))
-        pbl = [from_numpy_bvh8(b) for b in sc.jblases]
+        pbl = [from_numpy_bvh8(b, device="cpu") for b in sc.jblases]
         kw_p.update(leaf_uvs=merge_leaf_attrs(pbl, uvs),
                     leaf_tex=merge_leaf_attrs(pbl, tex_ids),
                     tex=build_atlas(images, device="cpu"))

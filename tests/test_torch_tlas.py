@@ -345,7 +345,7 @@ def test_intersect_tlas_wavefront_matches_jax(mode):
     mats = np.stack([_mat((3.0 * i, 3.0 * j, 0), yaw=0.5 * (i + j))
                      for i in range(3) for j in range(3)])
     jt = ji.build_tlas([tb.BVH(tris).bvh8], mats)
-    pt = from_numpy_tlas8(jt)
+    pt = from_numpy_tlas8(jt, device="cpu")
     _same_tables(pt, jt)
     rng = np.random.default_rng(12)
     o = np.tile(np.float32([[5.0, 5.0, -12.0]]), (384, 1))

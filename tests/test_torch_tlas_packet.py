@@ -237,7 +237,7 @@ def both():
     tris = sphere_tris(8, 12, radius=0.8)
     jb = tb.BVH(tris)
     jtp = jpk.build_tlas_packet([jb.bvh8], _MATS, host8s=[jb._bvh8_host])
-    return tris, jb, jtp, from_numpy_tlas_packet(jtp)
+    return tris, jb, jtp, from_numpy_tlas_packet(jtp, device="cpu")
 
 
 def test_build_tlas_packet_matches_jax(both):

@@ -46,7 +46,7 @@ def _few_torch_threads():
 def _both(tris):
     """The JAX BVH8 of tris and the same tables in the port."""
     jb8 = collapse_bvh2(build_binned(tris, max_leaf=4), tris)
-    return jb8, from_numpy_bvh8(jb8)
+    return jb8, from_numpy_bvh8(jb8, device="cpu")
 
 
 def _rays(seed, n, extent=10.0):

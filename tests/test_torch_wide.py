@@ -39,7 +39,7 @@ def _few_torch_threads():
 
 def _both(tris, width=8):
     jb8 = collapse_bvh2(build_binned(tris, max_leaf=4), tris, width=width)
-    return jb8, from_numpy_bvh8(jb8)
+    return jb8, from_numpy_bvh8(jb8, device="cpu")
 
 
 def _rays(seed, n, extent=10.0):

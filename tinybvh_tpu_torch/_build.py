@@ -125,6 +125,8 @@ _SIGNATURES = {
     "tbvh_gather_chain": [_P, _P, _P, _I, _P],
     "tbvh_gather_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbvh_gather_empty": [_P],
+    "tbvh_gather_col_occupancy": [_P],
+    "tbvh_gather_sublane_occupancy": [_P],
     "tbvh_gather_lane_occupancy": [_I, _P],
     "tbvh_gather_flat_occupancy": [_I, _P],
     "tbvh_gather_chain_occupancy": [_P],

@@ -8,12 +8,15 @@
 // one is an ordinary gather, from shared memory where the table fits and
 // from device memory (resident in L2) where it does not:
 //   row    out[r] = table[idx[r], :]: 16-byte loads, 12 per 48-lane row;
-//   col    out[r] = a[r, col[r]]: one thread per row;
+//   col    out[r] = a[r, col[r]]: four lanes a row, each loading a
+//          32-byte sector of the row with the row's index in the same
+//          phase, where the rows are short (see below);
 //   lane   o[f, l] = t[f, i[f, l]] (A, B, B2): one row of the table per
 //          CTA of a (output slice, row) grid, staged in shared memory with
 //          the CTA's indices in the same phase (see below);
 //   sub    o[s, l] = t[i[s, l], l] (C): the (512, 128) table (256 KB, more
-//          than one SM's shared memory) read from device memory;
+//          than one SM's shared memory) read from L2 after the index, one
+//          output a thread of a (lane slice, index row) grid (see below);
 //   flat   o = flat[i] (E): a table of up to 8,192 floats copied whole into
 //          each CTA's shared memory with its indices in the same phase,
 //          any other read from L2 after the index (see below);
@@ -88,6 +91,67 @@ __global__ void row_gather(const float4* __restrict__ table,
   out[e] = table[(long long)idx[r] * C4 + q];
 }
 
+// ---- col: one element of each row -----------------------------------------
+//
+// out (R,)[r] = a (R, C)[r, col[r]]. Two paths, chosen by the C entry from
+// the shape:
+//   rows (C % 4 == 0, C <= kColRowMax, a 16-byte aligned, R * C <=
+//     kColRowFloats): kColLanes lanes a row, lane p loading its 32-byte
+//     sector of the row (16-byte words 2p and 2p + 1) while it loads
+//     col[r] (one address for the row's lanes); the lane whose words hold
+//     column col[r] picks the word, then the float, by selects (no dynamic
+//     register index, no local memory) and stores. One L2 round trip, no
+//     shared memory, no barrier; CTAs of 128 threads, 32 rows each (128
+//     CTAs at the probe's (4096, 32));
+//   general, any other shape: one thread a row, col[r], then a[r, col[r]]
+//     from L2: two dependent round trips, one 32-byte sector a row.
+// On an H100 80GB HBM3 at 700 W the rows path took 0.001409-0.001415 ms of
+// device time at the probe's shape, the general one 0.001488. It reads the
+// whole row, four times the sectors the general one reads, so the rows
+// path stops at a megabyte of rows: at 12,288 rows of 32 the two tie
+// (0.001538-0.001541 against 0.001533-0.001543), at 16,384 the general one
+// leads (0.001572-0.001583 against 0.001608-0.001613), at 131,072 by far
+// (0.002430 against 0.003596). Rejected: one thread a row holding its whole row in
+// registers, 0.001648-0.002321 (32 lines a warp instruction); 8 or 2 lanes
+// a row 0.001411 / 0.001585; the rows staged in shared memory by cp.async
+// with their indices, 0.001475 (PERF.md, Findings).
+constexpr int kColRowMax = 32;      // floats of a row on the rows path
+constexpr int kColLanes = 4;        // lanes a row
+constexpr int kColWords = kColRowMax / 4 / kColLanes;  // 16-byte words a lane
+constexpr int kColThreads = 128;
+constexpr long long kColRowFloats = 1 << 18;  // rows path: a's floats (1 MB)
+
+__global__ void __launch_bounds__(kColThreads)
+col_gather_rows(const float* __restrict__ a, const int* __restrict__ col,
+                float* __restrict__ out, int R, int C4) {
+  const long long g = (long long)blockIdx.x * kColThreads + threadIdx.x;
+  const int r = (int)(g / kColLanes), part = (int)(g % kColLanes);
+  if (r >= R) return;
+  const int k = col[r];
+  const float4* row = reinterpret_cast<const float4*>(a) + (long long)r * C4;
+  float4 w[kColWords];
+#pragma unroll
+  for (int p = 0; p < kColWords; ++p) {
+    const int j = part * kColWords + p;
+    w[p] = j < C4 ? row[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the index and the words load in one phase: the empty asm needs both
+  // (a load used only under the branch below may otherwise sink into it,
+  // behind the index)
+#pragma unroll
+  for (int p = 0; p < kColWords; ++p)
+    asm volatile("" ::"r"(k), "f"(w[p].x), "f"(w[p].y), "f"(w[p].z),
+                 "f"(w[p].w));
+  const int j = k >> 2;
+  if (j / kColWords != part) return;
+  float4 x = w[0];
+#pragma unroll
+  for (int p = 1; p < kColWords; ++p)
+    if (j % kColWords == p) x = w[p];
+  const int c = k & 3;
+  out[r] = c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
+}
+
 __global__ void col_gather(const float* __restrict__ a,
                            const int* __restrict__ col,
                            float* __restrict__ out, int R, int C) {
@@ -157,11 +221,37 @@ lane_gather_row(const float* __restrict__ t, const int* __restrict__ i,
   if (live) o[e] = row[k];
 }
 
-__global__ void sublane_gather(const float* __restrict__ t,
-                               const int* __restrict__ i,
-                               float* __restrict__ o, int S, int W) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < S * W) o[e] = t[(long long)i[e] * W + e % W];
+// ---- C: sublane gathers of an (N, W) table --------------------------------
+//
+// o (S, W)[s, l] = t (N, W)[i[s, l], l], any shape: the index, then
+// t[i, l] from L2, two dependent round trips, on a (W / 128 lane slices,
+// S index rows) grid of 128 threads, one output a thread (8 CTAs at the
+// probe's (512, 128), S = 8), index rows past 65,535 split evenly over
+// grid z: no loop, no runtime division, 64-bit offsets. On 65,543 index
+// rows the count of CTAs sets the time, not idle lanes: W = 1 and W = 128
+// took the same time, and halving the CTAs halved it (0.0809 -> 0.0416
+// ms at W = 128); no caller sends so many.
+// On an H100 80GB HBM3 at 700 W the grid took 0.001367-0.001375 ms of
+// device time at the probe's shape against 0.001428 for the earlier form
+// (a 1-D grid over the outputs, the lane by a runtime `%`, a 32-bit
+// `S * W`), and was the fastest form at every shape timed (N 100 to 4,096,
+// S 1 to 32). The indices range over all N rows, so staging the table
+// costs a CTA one L2 line a row: rejected, column slices staged by
+// cp.async with the indices (2, 4 or 8 columns a CTA, 0.00155-0.00186),
+// and row blocks staged with every index of their slice, each output
+// stored by the CTA that holds its row (0.00147-0.00163); the grid looping
+// over index rows instead of grid z 0.001418-0.001428 (PERF.md, Findings).
+constexpr int kSubThreads = 128;
+constexpr int kGridYMax = 65535;
+
+__global__ void __launch_bounds__(kSubThreads)
+sublane_gather(const float* __restrict__ t, const int* __restrict__ i,
+               float* __restrict__ o, int S, int W) {
+  const int l = blockIdx.x * kSubThreads + threadIdx.x;
+  const long long s = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  if (l >= W || s >= S) return;
+  const long long e = s * W + l;
+  o[e] = t[(long long)i[e] * W + l];
 }
 
 // ---- E: flat take --------------------------------------------------------
@@ -504,12 +594,21 @@ extern "C" int tbvh_gather_row(const float* table, const int* idx,
   return tbvh::launched();
 }
 
-// a (R, C) f32, col (R,) -> (R,).
+// a (R, C) f32, col (R,) in [0, C) -> (R,): by the rows path where the
+// shape allows it (see above), else by the general one.
 extern "C" int tbvh_gather_col(const float* a, const int* col, float* out,
                                int R, int C, void* stream) {
   if (R <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  tbvh::col_gather<<<tbvh::blocks(R, tbvh::kThreads), tbvh::kThreads, 0,
-                     (cudaStream_t)stream>>>(a, col, out, R, C);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C % 4 == 0 && C <= tbvh::kColRowMax &&
+      reinterpret_cast<std::uintptr_t>(a) % 16 == 0 &&
+      (long long)R * C <= tbvh::kColRowFloats)
+    tbvh::col_gather_rows<<<tbvh::blocks((long long)R * tbvh::kColLanes,
+                                         tbvh::kColThreads),
+                            tbvh::kColThreads, 0, s>>>(a, col, out, R, C / 4);
+  else
+    tbvh::col_gather<<<tbvh::blocks(R, tbvh::kThreads), tbvh::kThreads, 0,
+                       s>>>(a, col, out, R, C);
   return tbvh::launched();
 }
 
@@ -532,12 +631,13 @@ extern "C" int tbvh_gather_lane(const float* t, const int* i, float* o,
   return tbvh::launched();
 }
 
-// t (N, W) f32, i (S, W) -> (S, W).
+// t (N, W) f32, i (S, W) in [0, N) -> (S, W).
 extern "C" int tbvh_gather_sublane(const float* t, const int* i, float* o,
                                    int S, int W, void* stream) {
   if (S <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  tbvh::sublane_gather<<<tbvh::blocks(S * W, tbvh::kThreads),
-                         tbvh::kThreads, 0, (cudaStream_t)stream>>>(
+  const int z = tbvh::blocks(S, tbvh::kGridYMax);
+  const dim3 grid(tbvh::blocks(W, tbvh::kSubThreads), tbvh::blocks(S, z), z);
+  tbvh::sublane_gather<<<grid, tbvh::kSubThreads, 0, (cudaStream_t)stream>>>(
       t, i, o, S, W);
   return tbvh::launched();
 }
@@ -595,9 +695,22 @@ extern "C" int tbvh_gather_empty(void* stream) {
   return tbvh::launched();
 }
 
-// The resources of the lane kernel at table width TW (128: A; 1024: B,
-// B2), of the flat take's staged path at table length N, of the chain
-// kernel and of the sum kernel's staged path (the probe's).
+// The resources of the col kernel's rows path, of the sublane kernel, of
+// the lane kernel at table width TW (128: A; 1024: B, B2), of the flat
+// take's staged path at table length N, of the chain kernel and of the
+// sum kernel's staged path (the probe's).
+extern "C" int tbvh_gather_col_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::col_gather_rows),
+      tbvh::kColThreads, 0, out);
+}
+
+extern "C" int tbvh_gather_sublane_occupancy(int* out) {
+  return tbvh::kernel_occupancy(
+      reinterpret_cast<const void*>(&tbvh::sublane_gather),
+      tbvh::kSubThreads, 0, out);
+}
+
 extern "C" int tbvh_gather_lane_occupancy(int TW, int* out) {
   if (TW == tbvh::kW)
     return tbvh::kernel_occupancy(

@@ -90,6 +90,10 @@ def _col_plain(a, col):
 
 
 def col_gather(a, col):
+    """The C entry gives short rows (C a multiple of 4, at most 32 floats,
+    a 16-byte aligned, at most 2^18 floats in all) four lanes each, which
+    load the row with its index; any other shape reads a[r, col[r]] from
+    L2 after the index."""
     if not _on_cuda("col_gather", a, col):
         return _col_plain(a, col)
     R, C = a.shape
@@ -132,6 +136,8 @@ def _sublane_plain(t, i):
 
 
 def sublane_gather(t, i):
+    """The kernel reads t[i, l] from L2 after the index, one output a
+    thread of a (W / 128, S) grid; any shape."""
     if not _on_cuda("sublane_gather", t, i):
         return _sublane_plain(t, i)
     N, Wt = t.shape
