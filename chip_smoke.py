@@ -100,13 +100,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (index_select, gather, take, or for D torch.mm of 10 x the one-hot
      matrix in f32 with t in f32, equal to the kernel; events and a CUDA
      graph, as the kernel) and its bound; the launch floor (an empty
-     kernel's device time) and, for the redesigned H-A, H-B, H-B2, H-C,
-     H-col, H-E, H-A100 and H-C100, the device time of each kernel (and
-     of H-A100's at 0 rounds, of H-C's on 65,543 index rows (grid z), of
-     H-col's general path at 48 columns and at 8,193 rows and of H-E's on
-     a 2,049-float table), each output checked, what sets the pace, and
-     their occupancy (the lane kernel at widths 128 and 1,024, H-C, H-col's
-     rows path, H-E's staged path); H-D's occupancy.
+     kernel's device time) and, for the redesigned H-row, H-A, H-B, H-B2,
+     H-C, H-col, H-E, H-A100 and H-C100, the device time of each kernel
+     (and of H-row's general path at 47 columns and on a table view one
+     float into its storage, of H-row's earlier design, and of both H-row
+     designs at 262,144 indices into 1,048,576 rows with that shape's
+     bound; of H-A100's at 0 rounds, of H-C's on 65,543 index rows (grid
+     z), of H-col's general path at 48 columns and at 8,193 rows and of
+     H-E's on a 2,049-float table), each output checked, what sets the
+     pace, and their occupancy (H-row's rows path at 48 columns and its
+     general one at 47, the lane kernel at widths 128 and 1,024, H-C,
+     H-col's rows path, H-E's staged path); H-D's occupancy.
      Kernel I, kernel
      B's tile loop in eight variants at 16, 64 and 256 clustered keys a
      tile and at 64 scattered ones (T = 1,600, k_cap 256, the random64k
@@ -2262,10 +2266,11 @@ def gather_bytes(form, args, out):
 
 
 # H forms given a design
-REDESIGNS = ("A", "B", "B2", "C", "col", "E", "A100", "C100")
+REDESIGNS = ("row", "A", "B", "B2", "C", "col", "E", "A100", "C100")
 # what a redesigned form's time above the launch floor pays for, where no
 # call of it at 0 rounds splits it
-REDESIGN_REST = {"A": "its row's staging and lookup",
+REDESIGN_REST = {"row": "its index and data round trips",
+                 "A": "its row's staging and lookup",
                  "B": "its row's staging and lookup",
                  "B2": "its row's staging and lookup",
                  "C": "its index and data round trips",
@@ -2274,9 +2279,31 @@ REDESIGN_REST = {"A": "its row's staging and lookup",
                  "C100": "its staging and rounds"}
 
 
+# H-row's large shape: 262,144 indices into 1,048,576 rows of 48 floats
+# (201 MB, four times L2), both drawn on the card from this seed
+ROW_LARGE = dict(M=1048576, C=48, R=262144, seed=7)
+
+
+def row_large_inputs(dev):
+    """H-row's table and indices at ROW_LARGE, uniform, from a generator
+    on `dev` seeded with ROW_LARGE["seed"]."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(ROW_LARGE["seed"])
+    M = ROW_LARGE["M"]
+    t = torch.rand((M, ROW_LARGE["C"]), generator=g, device=dev)
+    i = torch.randint(0, M, (ROW_LARGE["R"],), generator=g, device=dev,
+                      dtype=torch.int32)
+    return t, i
+
+
 def redesign_calls(form, args):
     """H form `form` (REDESIGNS) on `args`: {label: (zero-argument
-    callable, expected output)}, the wrapper's call first; for A100, its
+    callable, expected output[, arguments whose bound the line prints])},
+    the wrapper's call first; for row, its general path at 47 columns and
+    on a table view one float into its storage, its earlier design, and
+    both designs and the library call (index_select, never the port's) at
+    ROW_LARGE; for A100, its
     kernel at 0 rounds through the C entry (its fixed part: loads and
     stores); for E, its general path on the table with one float more
     (2,049, not a multiple of 4: the same outputs); for col, its general
@@ -2288,6 +2315,26 @@ def redesign_calls(form, args):
 
     t, i = args
     ref = gather.FORMS[form].plain(t, i)
+    if form == "row":
+        narrow = t[:, :47].contiguous()
+        odd = torch.zeros(t.numel() + 1, device=t.device)[1:].view(t.shape)
+        odd.copy_(t)
+        big, big_i = row_large_inputs(t.device)
+        big_ref = gather._row_plain(big, big_i)
+        return {"rows path": (lambda: gather.row_gather(t, i), ref),
+                "general (C = 47)": (lambda: gather.row_gather(narrow, i),
+                                     gather._row_plain(narrow, i)),
+                "general (offset view)": (
+                    lambda: gather.row_gather(odd, i), ref),
+                "earlier design": (
+                    lambda: gather.row_gather(t, i, path="earlier"), ref),
+                "rows path, large": (lambda: gather.row_gather(big, big_i),
+                                     big_ref, (big, big_i)),
+                "earlier design, large": (
+                    lambda: gather.row_gather(big, big_i, path="earlier"),
+                    big_ref, (big, big_i)),
+                "library index_select, large": (
+                    library_call(form, (big, big_i)), big_ref, (big, big_i))}
     if form in ("A", "B", "B2"):
         return {"row slices": (lambda: gather.lane_gather(t, i), ref)}
     if form == "C":
@@ -2344,10 +2391,18 @@ def phase_redesigns(h, kern, gpu_line, n=3):
         calls = redesign_calls(form, h[form]["args"])
         times = {k: [] for k in calls}
         for k in [k for _ in range(n) for k in calls]:
-            fn, expected = calls[k]
+            fn, expected, *_ = calls[k]
             if not torch.equal(fn(), expected):
                 raise AssertionError(f"gather_{form} {k}: wrong output")
             times[k].append(device_ms(fn, gather.N_TIMED))
+        # calls at a shape of their own: the share of their bound reached
+        shares = []
+        for lab, (_, expected, *own) in calls.items():
+            if own:
+                b = bound_of(gather_bytes(form, own[0], expected), {})
+                shares.append(f"{lab} at {b['bound_ms'] / min(times[lab]):.1%}"
+                              f" of its bound {b['bound_ms']:.6f} ms "
+                              f"({b['bound_by']})")
         k = kern[f"gather_{form}"]
         main = next(iter(calls))
         new = min(times[main])
@@ -2367,9 +2422,13 @@ def phase_redesigns(h, kern, gpu_line, n=3):
               "paced by " + ", ".join(f"{lab} {ms:.6f}" for lab, ms in
                                        sorted(parts.items(),
                                               key=lambda kv: -kv[1]))
+              + "".join(f"; {x}" for x in shares)
               + f" [{gpu_line}]", flush=True)
+        del calls
     n_flat = h["E"]["args"][0].shape[0]
     for (entry, *args), form in (
+            (("tbvh_gather_row_occupancy", 48), "row (rows path, C = 48)"),
+            (("tbvh_gather_row_occupancy", 47), "row (general, C = 47)"),
             (("tbvh_gather_lane_occupancy", gather.W), "A"),
             (("tbvh_gather_lane_occupancy", 1024), "B / H-B2"),
             (("tbvh_gather_sublane_occupancy",), "C"),

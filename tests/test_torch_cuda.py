@@ -1805,6 +1805,99 @@ def test_col_kernel_edge_cases(case):
                           hg._col_plain(a, col))
 
 
+# H-row's kernel on both of its paths: rows where C is a multiple of 4 up
+# to ROW_MAX_C, the table and its output 16-byte aligned and M * C and
+# R * C below 2^31, else the general one (tests/test_torch_probes.py holds
+# the twin to the JAX probe's `kernel` on the same cases)
+ROW_MAX_C = 1024             # kRowMaxC of csrc/gather_probe.cu
+# case -> (M, C, R, indices)
+ROW_CASES = {"probe": (8192, 48, 4096, "uniform"),
+             "R1": (8192, 48, 1, "uniform"), "R31": (8192, 48, 31, "uniform"),
+             "R33": (8192, 48, 33, "uniform"),
+             "R4097": (8192, 48, 4097, "uniform"),
+             "zeros": (8192, 48, 4096, "zeros"),
+             "last": (8192, 48, 4096, "last"),
+             "reversed": (4096, 48, 4096, "reversed"),
+             "same": (8192, 48, 4096, "same"),
+             "C4": (8192, 4, 4096, "uniform"),
+             "C12": (8192, 12, 4096, "uniform"),
+             "C1024": (512, ROW_MAX_C, 300, "uniform"),
+             "C6": (8192, 6, 4096, "uniform"),
+             "C47": (8192, 47, 4096, "uniform"),
+             "C1": (8192, 1, 4096, "uniform"),
+             "C1028": (512, ROW_MAX_C + 4, 300, "uniform"),
+             "offset": (8192, 48, 4096, "uniform")}  # one float past 16 B
+ROW_GENERAL = ("C6", "C47", "C1", "C1028", "offset")  # the shape's path
+
+
+def row_edge_inputs(case, seed=0):
+    """(table (M, C) f32, idx (R,) int32) numpy for ROW_CASES[case]: table
+    uniform plus its row number mod 1,024; idx uniform in [0, M) with 0
+    first and M - 1 last (one index: M - 1), all 0, all M - 1, the
+    reversed permutation of the M rows (R = M), or one row for all."""
+    M, C, R, kind = ROW_CASES[case]
+    rng = np.random.default_rng(seed)
+    table = (rng.random((M, C), dtype=np.float32)
+             + (np.arange(M) % 1024).astype(np.float32)[:, None])
+    if kind == "uniform":
+        idx = rng.integers(0, M, R, dtype=np.int32)
+        idx[0], idx[-1] = 0, M - 1
+    elif kind == "zeros":
+        idx = np.zeros(R, np.int32)
+    elif kind == "last":
+        idx = np.full(R, M - 1, np.int32)
+    elif kind == "reversed":
+        idx = (M - 1 - np.arange(R) % M).astype(np.int32)
+    else:
+        idx = np.full(R, M // 2 + 1, np.int32)
+    return table, idx
+
+
+@pytest.mark.parametrize("case,path", [
+    (c, p) for c in ROW_CASES
+    for p in ("shape", "general")
+    + (() if c in ROW_GENERAL else ("earlier",))])
+def test_row_kernel_edge_cases(case, path):
+    """H-row's kernel on the path its shape takes (rows, or general at C =
+    6, 47, 1 and 1,028 and on a misaligned table), forced onto its general
+    path, and where the shape allows it its earlier design: equal to the
+    twin bit for bit, one launch counted, none for a call captured in a
+    CUDA graph, whose replay computes the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    table, idx = row_edge_inputs(case)
+    t = (offset_view(table, "cuda") if case == "offset"
+         else torch.from_numpy(table).cuda())
+    i = torch.from_numpy(idx).cuda()
+    _counted_and_replayed("row_gather",
+                          lambda: hg.row_gather(t, i, path=path),
+                          hg._row_plain(t, i))
+
+
+def test_row_kernel_past_32_bit_offsets():
+    """A table of more than 2^31 floats (8.6 GB) takes the general path,
+    64-bit offsets; its rows at the start, the middle and the end equal
+    the twin's, and the earlier design, on the rows path's shapes only,
+    refuses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    M, C = (1 << 31) // 48 + 2, 48
+    t = torch.empty((M, C), device="cuda")
+    rows = torch.tensor([0, 1, M // 2, M - 2, M - 1], device="cuda")
+    t[rows] = torch.arange(rows.numel() * C, dtype=torch.float32,
+                           device="cuda").view(-1, C)
+    i = rows[torch.tensor([4, 0, 3, 2, 1, 4, 4, 0], device="cuda")].int()
+    before = hg.LAUNCHES["row_gather"]
+    got = hg.row_gather(t, i)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["row_gather"] == before + 1
+    assert torch.equal(got, hg._row_plain(t, i))
+    with pytest.raises(RuntimeError):   # the rows path's shapes only
+        hg.row_gather(t, i, path="earlier")
+    del t
+    torch.cuda.empty_cache()
+
+
 def test_launch_floor_is_measured():
     """The empty kernel launches and its device time is above zero."""
     if not torch.cuda.is_available():
@@ -1880,7 +1973,9 @@ def test_ablation_kernel_matches_plain(scene, variant, T):
 
 def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
     """A wrong dtype, shape or a mix of devices raises; nothing launches
-    and nothing falls back to the twin."""
+    and nothing falls back to the twin. H-row takes every table the TPU
+    kernel takes: a (M, 6) table and a misaligned view launch its kernel
+    and give the twin's rows."""
     _, bvh = scene
     args, gtab = _ablation_inputs(bvh, 8)
     before = (dict(hg.LAUNCHES), dict(ma.LAUNCHES))
@@ -1948,7 +2043,39 @@ def test_probe_wrappers_reject_bad_inputs(scene, gather_inputs):
     with pytest.raises(RuntimeError):
         hg._launch("chain_gather", "tbvh_gather_chain", *gather_inputs["A100"],
                    torch.empty((hg.F, hg.W), device="cuda"), -1)
+    t, i = gather_inputs["row"]
+    with pytest.raises(TypeError):
+        hg.row_gather(t.double(), i)
+    with pytest.raises(TypeError):
+        hg.row_gather(t, i.long())
+    with pytest.raises(ValueError):   # a CPU index
+        hg.row_gather(t, i.cpu())
+    with pytest.raises(ValueError):   # a non-contiguous table
+        hg.row_gather(t[:, ::2], i)
+    with pytest.raises(ValueError):   # no such path
+        hg.row_gather(t, i, path="staged")
+    six = t[:, :6].contiguous()
+    with pytest.raises(RuntimeError):   # the rows path's shapes only
+        hg.row_gather(six, i, path="earlier")
+    out = torch.empty((i.shape[0], 48), device="cuda")
+    for M, R, C, path in ((t.shape[0], 0, 48, 0), (0, i.shape[0], 48, 0),
+                          (t.shape[0], i.shape[0], 0, 0),
+                          (t.shape[0], i.shape[0], 48, 3)):
+        with pytest.raises(RuntimeError):  # the C entry's own check
+            hg._launch("row_gather", "tbvh_gather_row", t, i, out, M, R, C,
+                       path)
+    empty = hg.row_gather(t, i[:0])   # no indices: no launch
+    assert empty.shape == (0, 48) and empty.is_cuda
     assert (hg.LAUNCHES, ma.LAUNCHES) == before
+    # what the TPU kernel takes and the rows path does not: accepted
+    odd = torch.zeros(t.numel() + 1, device="cuda")[1:].view(t.shape)
+    odd.copy_(t)
+    assert odd.data_ptr() % 16
+    for table in (six, odd):
+        got = hg.row_gather(table, i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hg._row_plain(table, i))
+    assert hg.LAUNCHES["row_gather"] == before[0]["row_gather"] + 2
 
 
 # ---- kernels I and B-omap on constructed cases -----------------------------

@@ -54,6 +54,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 import tinybvh_tpu as tb  # noqa: E402
 from tinybvh_tpu.builders.binned import (  # noqa: E402
     build_binned as j_build_binned)
+from tinybvh_tpu.core.rays import no_hits as j_no_hits  # noqa: E402
 from tinybvh_tpu.ops import voxel as jvx  # noqa: E402
 from tinybvh_tpu.tlas import instance as ji  # noqa: E402
 from tinybvh_tpu.tlas import packet as jpk  # noqa: E402
@@ -65,9 +66,10 @@ from tinybvh_tpu_torch.probes import mt_ablation as ma  # noqa: E402
 from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
 from test_torch_cuda import (  # noqa: E402
     CHAIN_MAPS, CHAIN_ROUNDS, COL_CASES, FLAT_SHAPES, FLAT_TABLES,
-    LANE_EDGE_CASES, SUB_CASES, SUM_EDGES, chain_map, col_edge_inputs,
-    flat_edge_inputs, lane_edge_inputs, offset_view, sub_edge_inputs,
-    sum_inputs)
+    LANE_EDGE_CASES, ROW_CASES, SUB_CASES, SUM_EDGES, chain_map,
+    col_edge_inputs, flat_edge_inputs, lane_edge_inputs, offset_view,
+    row_edge_inputs, sub_edge_inputs, sum_inputs)
+from tinybvh_tpu_torch.core.rays import no_hits  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, K_CAP, KPT = 8, 64, 40
@@ -140,6 +142,25 @@ def test_gather_twin_matches_jax_probe(probes, form):
     got = wrapper(*[_t(a) for a in arrays])
     assert hg.LAUNCHES == before          # the CPU runs the twin
     assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_row_twin_matches_jax_probe_on_edge_cases(probes, case):
+    """H-row's twin against the probe's `kernel` (pallas_gather_probe.py:20)
+    at each case's shape: 1, 31, 33 and 4,097 indices; all 0, all M - 1,
+    the reversed permutation, one row for all; C = 4, 12, 48 and 1,024 (the
+    kernel's rows path) and 6, 47, 1 and 1,028 (its general one); a table
+    view one float into its storage."""
+    table, idx = row_edge_inputs(case)
+    ref = _interpret(probes["pallas_gather_probe"].kernel,
+                     (idx.size, table.shape[1]), jnp.float32,
+                     jnp.asarray(table), jnp.asarray(idx))
+    t = (offset_view(table, "cpu") if case == "offset"
+         else torch.from_numpy(table))
+    before = dict(hg.LAUNCHES)
+    got = hg.row_gather(t, torch.from_numpy(idx))
+    assert hg.LAUNCHES == before          # the CPU runs the twin
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -332,6 +353,22 @@ def test_convert_needs_a_card_or_cpu(monkeypatch, jax_state, kind):
         fn(*jax_state[kind])
     got = _tensors(fn(*jax_state[kind], device="cpu"))
     assert got and all(t.device.type == "cpu" for t in got)
+
+
+def test_no_hits_needs_a_card_or_cpu(monkeypatch):
+    """no_hits puts its misses on the card unless asked, as JAX's places
+    them on the default device: without a CUDA device and without
+    `device` it raises, naming device="cpu"; with device="cpu" every
+    tensor lies on the CPU and equals JAX's no_hits."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        no_hits((4,))
+    got, ref = no_hits((2, 3), device="cpu"), j_no_hits((2, 3))
+    for f in dataclasses.fields(got):
+        t = getattr(got, f.name)
+        assert t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(ref,
+                                                                    f.name)))
 
 
 # ---- kernel I ---------------------------------------------------------------

@@ -117,7 +117,7 @@ _SIGNATURES = {
     "tbvh_frustum_walk_seq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "tbvh_frustum_walk_occupancy": [_P],
     # gather_probe.cu
-    "tbvh_gather_row": [_P, _P, _P, _I, _I, _P],
+    "tbvh_gather_row": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbvh_gather_col": [_P, _P, _P, _I, _I, _P],
     "tbvh_gather_lane": [_P, _P, _P, _I, _I, _P],
     "tbvh_gather_sublane": [_P, _P, _P, _I, _I, _P],
@@ -125,6 +125,7 @@ _SIGNATURES = {
     "tbvh_gather_chain": [_P, _P, _P, _I, _P],
     "tbvh_gather_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbvh_gather_empty": [_P],
+    "tbvh_gather_row_occupancy": [_I, _P],
     "tbvh_gather_col_occupancy": [_P],
     "tbvh_gather_sublane_occupancy": [_P],
     "tbvh_gather_lane_occupancy": [_I, _P],

@@ -84,7 +84,10 @@ def make_rays(o, d, mask=None, device=None) -> Rays:
     return Rays(o=o.contiguous(), d=d.contiguous(), rd=safe_rcp(d), mask=mask)
 
 
-def no_hits(batch_shape, device="cpu") -> Hits:
+def no_hits(batch_shape, device=None) -> Hits:
+    """Misses for every ray of `batch_shape`, on `device` (default_device:
+    the card unless asked)."""
+    device = default_device(device)
     return Hits(
         t=torch.full(batch_shape, BVH_FAR, dtype=torch.float32, device=device),
         u=torch.zeros(batch_shape, dtype=torch.float32, device=device),

@@ -7,7 +7,8 @@
 // per-lane gathers Mosaic lowers and what each costs; on the H100 every
 // one is an ordinary gather, from shared memory where the table fits and
 // from device memory (resident in L2) where it does not:
-//   row    out[r] = table[idx[r], :]: 16-byte loads, 12 per 48-lane row;
+//   row    out[r] = table[idx[r], :]: a CTA of (row words, rows), one
+//          16-byte word a thread where the rows allow it (see below);
 //   col    out[r] = a[r, col[r]]: four lanes a row, each loading a
 //          32-byte sector of the row with the row's index in the same
 //          phase, where the rows are short (see below);
@@ -82,9 +83,69 @@ int blocks(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }
 
-__global__ void row_gather(const float4* __restrict__ table,
-                           const int* __restrict__ idx,
-                           float4* __restrict__ out, int R, int C4) {
+// ---- row: whole rows by index ----------------------------------------------
+//
+// out (R, C)[r, :] = table (M, C)[idx[r], :], any shape. A CTA of (x, y)
+// threads copies y rows, x words a row: the row's index, then its words
+// from L2, then the stores; no division, two dependent round trips. Three
+// paths, chosen by the C entry from the shape (its `path` can force one):
+//   rows (C % 4 == 0, C <= kRowMaxC, table and out 16-byte aligned, M * C
+//     and R * C below 2^31): one 16-byte word a thread, 32-bit offsets;
+//     (12, 21) CTAs, 196 of them, at the probe's (8192, 48) by 4,096;
+//   general, any other shape: one float a thread, 64-bit offsets, (47, 5)
+//     CTAs at 47 columns; rows past kRowThreads floats loop;
+//   earlier (forced only): one 16-byte word a thread of a 1-D grid, its
+//     row by a 64-bit divide, kept so that phase 14 times it beside the
+//     rows path.
+// On an H100 80GB HBM3 at 700 W (one CUDA graph of 200 launches; PERF.md,
+// Findings) the rows path took 0.001628-0.001646 ms of device time at the
+// probe's shape against 0.001692-0.001720 for the earlier design, and
+// 0.03775-0.03780 ms at 262,144 indices into 1,048,576 rows (201 MB, four
+// times L2) against 0.03810-0.03815: 76% of that shape's byte bound, the
+// rest DRAM's own cost for 192-byte rows picked at random. Rejected:
+// CTAs of 120 or 504 threads (0.00164, 0.00166); a warp per 8, 16 or 32
+// rows (one index load a lane, the row's index by a shuffle, every load
+// before the stores) 0.00167-0.00221, slower the fewer its warps; whole
+// rows copied into shared memory by `cp.async.bulk` on one mbarrier and
+// stored by one bulk store 0.00205-0.00253 (0.0373 at the large shape).
+constexpr int kRowThreads = 256;
+constexpr int kRowMaxC = 4 * kRowThreads;  // floats of a row, rows path
+
+template <typename V, typename Off, bool kWide>
+__global__ void __launch_bounds__(kRowThreads)
+row_gather(const V* __restrict__ table, const int* __restrict__ idx,
+           V* __restrict__ out, int R, int n) {  // n words a row
+  const Off r = (Off)blockIdx.x * blockDim.y + threadIdx.y;
+  if (r >= R) return;
+  const Off src = (Off)idx[r] * n, dst = r * n;
+  // blockDim.x = min(n, kRowThreads): every thread has a word; only a row
+  // of more words (kWide) loops, since a loop, even one never taken
+  // again, cost the rows path 0.00006 ms at the probe's shape
+  Off q = threadIdx.x;
+  out[dst + q] = table[src + q];
+  if (kWide)
+    for (q += blockDim.x; q < n; q += blockDim.x)
+      out[dst + q] = table[src + q];
+}
+
+// The CTA of a row of n words: min(n, kRowThreads) words by as many rows
+// as make kRowThreads threads (at least one).
+dim3 row_block(int n) {
+  const int x = n < kRowThreads ? n : kRowThreads;
+  return dim3(x, x < kRowThreads ? kRowThreads / x : 1);
+}
+
+template <typename V, typename Off, bool kWide>
+void launch_rows(const V* table, const int* idx, V* out, int R, int n,
+                 cudaStream_t s) {
+  const dim3 block = row_block(n);
+  row_gather<V, Off, kWide><<<blocks(R, block.y), block, 0, s>>>(
+      table, idx, out, R, n);
+}
+
+__global__ void row_gather_earlier(const float4* __restrict__ table,
+                                   const int* __restrict__ idx,
+                                   float4* __restrict__ out, int R, int C4) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)R * C4) return;
   const int r = (int)(e / C4), q = (int)(e - (long long)r * C4);
@@ -579,18 +640,42 @@ int launched() { return (int)cudaGetLastError(); }
 // cudaError_t (0 when the launch was taken). Shapes are checked by the
 // wrappers (probes/gather.py); indices must lie inside their tables.
 
-// table (M, C) f32 with C % 4 == 0 and 16-byte rows, idx (R,) -> (R, C).
+// The rows path takes these shapes (see above).
+static bool row_words_ok(const float* table, const float* out, int M,
+                         int R, int C) {
+  return C % 4 == 0 && C <= tbvh::kRowMaxC &&
+         reinterpret_cast<std::uintptr_t>(table) % 16 == 0 &&
+         reinterpret_cast<std::uintptr_t>(out) % 16 == 0 &&
+         (long long)M * C <= tbvh::kI32Max &&
+         (long long)R * C <= tbvh::kI32Max;
+}
+
+// table (M, C) f32, idx (R,) in [0, M) -> out (R, C): by the rows path
+// where the shape allows it, else by the general one (`path` 0); `path` 1
+// forces the general path, 2 the earlier design (the rows path's shapes
+// only).
 extern "C" int tbvh_gather_row(const float* table, const int* idx,
-                               float* out, int R, int C, void* stream) {
-  if (R <= 0 || C <= 0 || C % 4 ||
-      reinterpret_cast<std::uintptr_t>(table) % 16 ||
-      reinterpret_cast<std::uintptr_t>(out) % 16)
+                               float* out, int M, int R, int C, int path,
+                               void* stream) {
+  const bool words = row_words_ok(table, out, M, R, C);
+  if (M <= 0 || R <= 0 || C <= 0 || path < 0 || path > 2 ||
+      (path == 2 && !words))
     return (int)cudaErrorInvalidValue;
-  const int C4 = C / 4;
-  tbvh::row_gather<<<tbvh::blocks((long long)R * C4, tbvh::kThreads),
-                     tbvh::kThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(table), idx,
-      reinterpret_cast<float4*>(out), R, C4);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (path == 0 && words)
+    tbvh::launch_rows<float4, int, false>(
+        reinterpret_cast<const float4*>(table), idx,
+        reinterpret_cast<float4*>(out), R, C / 4, s);
+  else if (path < 2 && C <= tbvh::kRowThreads)
+    tbvh::launch_rows<float, long long, false>(table, idx, out, R, C, s);
+  else if (path < 2)
+    tbvh::launch_rows<float, long long, true>(table, idx, out, R, C, s);
+  else
+    tbvh::row_gather_earlier<<<tbvh::blocks((long long)R * (C / 4),
+                                            tbvh::kThreads),
+                               tbvh::kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(table), idx,
+        reinterpret_cast<float4*>(out), R, C / 4);
   return tbvh::launched();
 }
 
@@ -695,10 +780,27 @@ extern "C" int tbvh_gather_empty(void* stream) {
   return tbvh::launched();
 }
 
-// The resources of the col kernel's rows path, of the sublane kernel, of
+// The resources of the row kernel at C columns (the rows path where C is
+// a multiple of 4 up to kRowMaxC, else the general one), of the col
+// kernel's rows path, of the sublane kernel, of
 // the lane kernel at table width TW (128: A; 1024: B, B2), of the flat
 // take's staged path at table length N, of the chain kernel and of the
 // sum kernel's staged path (the probe's).
+extern "C" int tbvh_gather_row_occupancy(int C, int* out) {
+  if (C <= 0) return (int)cudaErrorInvalidValue;
+  const bool words = C % 4 == 0 && C <= tbvh::kRowMaxC;
+  const dim3 b = tbvh::row_block(words ? C / 4 : C);
+  const void* fn =
+      words ? reinterpret_cast<const void*>(
+                  &tbvh::row_gather<float4, int, false>)
+      : C <= tbvh::kRowThreads
+          ? reinterpret_cast<const void*>(
+                &tbvh::row_gather<float, long long, false>)
+          : reinterpret_cast<const void*>(
+                &tbvh::row_gather<float, long long, true>);
+  return tbvh::kernel_occupancy(fn, b.x * b.y, 0, out);
+}
+
 extern "C" int tbvh_gather_col_occupancy(int* out) {
   return tbvh::kernel_occupancy(
       reinterpret_cast<const void*>(&tbvh::col_gather_rows),

@@ -71,15 +71,28 @@ def _row_plain(table, idx):
     return table[idx.long()]
 
 
-def row_gather(table, idx):
+ROW_PATHS = ("shape", "general", "earlier")  # tbvh_gather_row's `path`
+
+
+def row_gather(table, idx, path="shape"):
+    """Any (M, C) f32 table. The C entry gives rows of a multiple of 4
+    floats (at most 1,024) in 16-byte aligned tables with offsets below
+    2^31 its rows path (one 16-byte word a thread), any other table its
+    general one (one float a thread, 64-bit offsets). `path` "general"
+    forces the general path, "earlier" the design before the rows path
+    (one 16-byte word a thread of a 1-D grid, the rows path's shapes
+    only), for tests and timing. No indices (or no columns): the empty
+    result, no launch."""
     if not _on_cuda("row_gather", table, idx):
         return _row_plain(table, idx)
     M, C = table.shape
+    R = idx.shape[0]
     _check("row table", table, torch.float32, (M, C))
-    _check("row idx", idx, torch.int32, (idx.shape[0],))
-    out = torch.empty((idx.shape[0], C), dtype=torch.float32,
-                      device=table.device)
-    _launch("row_gather", "tbvh_gather_row", table, idx, out, idx.shape[0], C)
+    _check("row idx", idx, torch.int32, (R,))
+    out = torch.empty((R, C), dtype=torch.float32, device=table.device)
+    if out.numel():
+        _launch("row_gather", "tbvh_gather_row", table, idx, out, M, R, C,
+                ROW_PATHS.index(path))
     return out
 
 
