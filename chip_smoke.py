@@ -8,6 +8,8 @@
                                        # lines
     python3 chip_smoke.py --foliage    # phases 1-2 and 16, no JSON lines
     python3 chip_smoke.py --probes     # phases 1-2 and 14, no JSON lines
+    python3 chip_smoke.py --engines    # phases 1-2 and 17 (every path
+                                       # profiled), no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -169,6 +171,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the voxel DDA on a full 256^3 VoxelSet (a sphere shell and a height
      field, millions of voxels) with 512x512 rays against a sampling
      oracle on 2048; each timed;
+ 17. the plain-torch engines at phase 4's width (random64k, 640x640
+     camera rays, phase 4's light): engine="rayloop" through the API on
+     the camera rays, on diffuse bounce rays (bench.py:440-455, a seeded
+     torch.Generator) and on the shadow segments, intersect_rayloop on
+     the quantized tables; the wavefront engine at the h100 row's cap in
+     each leaf test (mt, watertight, baldwin); the BVH2 engine of
+     BVH(tris, layout="bvh2") in each leaf test and of BVH(tris,
+     max_leaf=16) (leaves of 5), closest hit and shadow; the two-level
+     rayloop on phase 12b's inst8, closest hit and shadow, with the
+     bucketed engine's rate beside it; intersect_one; the watertight
+     shared-edge construction (64 quads, 8 rays each) through the test
+     and 16 of them through the wavefront and BVH2 engines, no ray
+     leaking. Each path: the oracle gates of phases 4 and 12b, MRays/s
+     (median of 3 after a warm-up), its loop's steps or rounds per level
+     and host syncs (the engine's count, and torch.cuda's sync debug
+     mode's), peak device memory, the rayloop's stack overflows (the
+     API re-traces those rays with the lockstep engine; the direct
+     engine calls must have none), and for each engine's first path
+     (every path under --engines) one more call under the profiler: its
+     kernel launches, copies, device time and the device's busy share of
+     the wall time; no max_rounds raise, and no kernel of the
+     package launched (the engines are plain torch);
 then a JSON line of the kernels (launches counted on each kernel's
 own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
 11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
@@ -3130,6 +3154,363 @@ def phase_foliage(bvh, rays, center, extent, gpu_line):
     return kern, launches
 
 
+ENGINES_LEAF_TESTS = ("watertight", "baldwin")
+EDGE_QUADS = 64
+
+
+def host_syncs(fn):
+    """fn()'s output and the host syncs it made on the card: the
+    synchronizing CUDA calls torch.cuda's sync debug mode reports (0 off
+    the card). The warnings slow the call: never time it."""
+    import warnings
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return fn(), 0
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def device_ops(fn, dev, wall_ms):
+    """One call of fn() under torch.profiler with the CUDA activity alone:
+    the kernels it launched and the copies and memsets it made, their
+    device ms and the device's busy share of wall_ms (an unprofiled
+    call's median wall time); "not measured" where the profiler saw no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        return "device ops not measured (no card)"
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    ev = [e for e in prof.key_averages()
+          if str(getattr(e, "device_type", "")).endswith("CUDA")
+          and getattr(e, "self_device_time_total", 0) > 0]
+    if not ev:
+        return "device ops not measured (the profiler saw no device time)"
+    copies = sum(e.count for e in ev if e.key.startswith(("Memcpy",
+                                                            "Memset")))
+    kernels = sum(e.count for e in ev) - copies
+    ms = sum(e.self_device_time_total for e in ev) / 1e3
+    return (f"kernel launches {kernels}, copies and memsets {copies}, "
+            f"device {ms:.2f} ms of {wall_ms:.2f} ms wall (busy "
+            f"{ms / wall_ms:.3f}), {1e3 * wall_ms / (kernels + copies):.2f}"
+            f" us wall a device op")
+
+
+def engine_run(fn, dev, stats=None, profiled=True):
+    """One path of phase 17: a first call with its peak device memory and
+    host syncs, the median wall time of 3 more, then with profiled one
+    under the profiler (device_ops). Returns (output, seconds, text);
+    stats: the engine's LAST_CALL, read after the first call."""
+    out, mem = peak_gib(lambda: host_syncs(fn), dev)
+    out, syncs = out
+    loops = "" if stats is None else (
+        ", ".join(f"{k} {v}" for k, v in stats.items()) + "; ")
+    secs = wall_s(fn, dev, warmed=True)
+    ops = f"; {device_ops(fn, dev, secs * 1e3)}" if profiled else ""
+    return out, secs, (f"{loops}host syncs {syncs}, peak device memory "
+                       f"{mem:.3f} GiB{ops}")
+
+
+def diffuse_rays(bvh, hits, rays, seed=1):
+    """bench.py:440-455's diffuse bounce rays: from each primary hit point
+    (1 unit along the ray for a miss), offset 1e-3 along the triangle's
+    normal turned to face the ray, a direction drawn from a seeded
+    torch.Generator and turned into that hemisphere."""
+    import torch
+    from tinybvh_tpu_torch import make_rays
+    from tinybvh_tpu_torch.core.vecmath import cross, normalize
+
+    dev = rays.o.device
+    ht = torch.where(torch.isfinite(hits.t) & (hits.t < 1e29), hits.t, 1.0)
+    p = rays.o + ht[:, None] * rays.d
+    tri = bvh.tris[torch.clamp(hits.prim.long(), min=0)]
+    nrm = normalize(cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]))
+    nrm = torch.where(((nrm * rays.d).sum(1) > 0)[:, None], -nrm, nrm)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dd = torch.randn(p.shape, generator=gen, device=dev)
+    dd = dd / torch.linalg.vector_norm(dd, dim=1, keepdim=True)
+    dd = torch.where(((dd * nrm).sum(1) < 0)[:, None], -dd, dd)
+    return make_rays(p + nrm * 1e-3, dd)
+
+
+def quad_edge_case(rng, n=8):
+    """tests/test_watertight.py:49-92: a planar quad split along a
+    diagonal into two triangles that share the edge (p1, p2), and n rays
+    aimed at points of that edge."""
+    p2d = np.array(
+        [[rng.uniform(-0.5, 1.5), rng.uniform(0.2, 1.5)], [0.0, 0.0],
+         [rng.uniform(0.8, 2.0), 0.0],
+         [rng.uniform(-0.5, 1.5), -rng.uniform(0.2, 1.5)]], np.float32)
+    basis = rng.normal(size=(3, 3)).astype(np.float32)
+    basis[0] /= np.linalg.norm(basis[0])
+    basis[1] -= basis[1] @ basis[0] * basis[0]
+    basis[1] /= np.linalg.norm(basis[1])
+    p = p2d @ basis[:2] + rng.uniform(-1, 1, 3).astype(np.float32)
+    tris = np.stack([np.stack([p[0], p[1], p[2]]),
+                     np.stack([p[1], p[3], p[2]])]).astype(np.float32)
+    lam = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    target = lam[:, None] * p[1] + (1 - lam[:, None]) * p[2]
+    o = rng.uniform(2, 4, (n, 3)).astype(np.float32)
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tris, o, d.astype(np.float32)
+
+
+def shared_edge_leaks(dev):
+    """The watertight guarantee on the card: EDGE_QUADS quads x 8 edge
+    rays through moller_trumbore_watertight (every ray must hit one of
+    the two triangles), and 16 of them through the wavefront and BVH2
+    engines under tri_test="watertight". Returns (rays, leaks) per
+    form."""
+    import torch
+    from tinybvh_tpu_torch import make_rays
+    from tinybvh_tpu_torch.builders.binned import build_binned
+    from tinybvh_tpu_torch.config import use_config
+    from tinybvh_tpu_torch.core.intersect import moller_trumbore_watertight
+    from tinybvh_tpu_torch.layouts.mbvh import collapse_bvh2
+    from tinybvh_tpu_torch.traverse.stack import intersect_bvh2, pack_tris
+    from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
+
+    rng = np.random.default_rng(3)
+    cases = [quad_edge_case(rng) for _ in range(EDGE_QUADS)]
+    o = np.concatenate([c[1] for c in cases])
+    d = np.concatenate([c[2] for c in cases])
+    tris = np.stack([c[0] for c in cases])                 # (Q, 2, 3, 3)
+    rays = make_rays(o, d, device=dev)
+    vert = torch.from_numpy(np.repeat(tris, 8, axis=0)).to(dev)
+    far = torch.full((o.shape[0],), 1e30, device=dev)
+    hit = [moller_trumbore_watertight(rays.o, rays.d, rays.rd,
+                                      vert[:, k, 0], vert[:, k, 1],
+                                      vert[:, k, 2], far)[0]
+           for k in range(2)]
+    out = {"function": (o.shape[0], int((~(hit[0] | hit[1])).sum()))}
+    leaks_wf = leaks_b2 = 0
+    with use_config(tri_test="watertight"):
+        for q in range(16):
+            r = make_rays(o[8 * q:8 * q + 8], d[8 * q:8 * q + 8], device=dev)
+            bvh2, host = build_binned(tris[q], max_leaf=2, return_host=True,
+                                      device=dev)
+            h2 = intersect_bvh2(bvh2, pack_tris(bvh2, tris[q]), r,
+                                leaf_max=2)
+            leaks_b2 += int((h2.prim < 0).sum())
+            hw, _ = intersect_wavefront(collapse_bvh2(bvh2, tris[q],
+                                                      host=host), r)
+            leaks_wf += int((hw.prim < 0).sum())
+    out["wavefront"] = (128, leaks_wf)
+    out["BVH2 engine"] = (128, leaks_b2)
+    for what, (n, leaks) in out.items():
+        if leaks:
+            raise AssertionError(f"watertight {what}: {leaks} of {n} "
+                                 "shared-edge rays leaked")
+    return out
+
+
+def phase_engines(bvh, tris, rays, center, extent, gpu_line,
+                  profile_every=False):
+    """Phase 17: the BVH2, rayloop and TLAS rayloop engines and the
+    watertight and Baldwin–Weber leaf tests at full width (random64k,
+    phase 4's 640x640 camera and light), each path with its oracle gates,
+    MRays/s (median of 3 after a warm-up), loop counts, host syncs and
+    peak device memory; the watertight shared-edge construction on the
+    card; intersect_one. The engines are plain torch: the kernel counts
+    are read across them (all 0). One call of each engine's first path
+    (of every path with profile_every: the profiler's parse of a BVH2
+    call's ~50,000 events takes seconds) runs under the profiler."""
+    import torch
+    from tinybvh_tpu_torch import BVH, make_rays
+    from tinybvh_tpu_torch.config import use_config
+    from tinybvh_tpu_torch.core.intersect import brute_force_any
+    from tinybvh_tpu_torch.tlas import rayloop as tlas_rayloop
+    from tinybvh_tpu_torch.tlas.packet import (
+        intersect_tlas_packets2_bucketed, tile_candidates,
+    )
+    from tinybvh_tpu_torch.traverse import rayloop, stack
+    from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    start = time.perf_counter()
+    dev = rays.o.device
+    R = rays.o.shape[0]
+    cutoff = 1.0 - 1e-3
+    cap = get_tuning(device=dev).wf_cap_factor
+    idx = oracle_subset(R, dev)
+
+    def shadow_gate(occ, srays, tris_dev, what):
+        ref = brute_force_any(srays.take(idx), tris_dev, cutoff)
+        agree = float((occ[idx] == ref).float().mean())
+        if agree < 0.999:
+            raise AssertionError(f"{what}: shadow agreement {agree}")
+        return (f"occluded {float(occ.float().mean()):.4f}, shadow-agree "
+                f"{agree:.5f}")
+
+    def hit_gate(h, r, tris_dev, what):
+        agree, ratio = oracle_check(h.take(idx), r.take(idx), tris_dev, what)
+        return (f"hit rate {float((h.prim >= 0).float().mean()):.4f}, "
+                f"prim-agree {agree:.5f} checksum {ratio:.6f}")
+
+    def line(what, secs, gates, extra, n=R):
+        print(f"phase 17 {what} {n / secs / 1e6:.3f} MRays/s, {gates}; "
+              f"{extra} [{gpu_line}]", flush=True)
+
+    reset_launches()
+    # the rayloop engine through the API: camera, diffuse bounce, shadow.
+    # The API re-traces a ray whose stack overflows with the lockstep
+    # engine: LAST_CALL counts such rays (the first call's), and the
+    # oracle gates them like the rest
+    hits, secs, extra = engine_run(
+        lambda: bvh.intersect(rays, engine="rayloop"), dev,
+        rayloop.LAST_CALL)
+    line("engine=rayloop camera", secs,
+         hit_gate(hits, rays, bvh.tris, "rayloop camera"), extra)
+    _, _, srays = shadow_rays(hits, rays, center, extent)
+    drays = diffuse_rays(bvh, hits, rays)
+    h, secs, extra = engine_run(
+        lambda: bvh.intersect(drays, engine="rayloop"), dev,
+        rayloop.LAST_CALL, profile_every)
+    line("engine=rayloop diffuse", secs,
+         hit_gate(h, drays, bvh.tris, "rayloop diffuse"), extra)
+    occ, secs, extra = engine_run(
+        lambda: bvh.is_occluded(srays, cutoff, engine="rayloop"), dev,
+        rayloop.LAST_CALL, profile_every)
+    line("engine=rayloop shadow", secs,
+         shadow_gate(occ, srays, bvh.tris, "rayloop shadow"), extra)
+    qtab = rayloop.make_rayloop_tables(bvh.bvh8, quantized=True,
+                                       host=bvh._bvh8_host)
+    (h, sovf), secs, extra = engine_run(
+        lambda: rayloop.intersect_rayloop(qtab, rays), dev, rayloop.LAST_CALL,
+        profile_every)
+    if int(sovf.sum()):   # no re-trace on this path: its hits would be off
+        raise AssertionError(f"rayloop quantized: {int(sovf.sum())} rays "
+                             "overflowed the stack")
+    line("intersect_rayloop quantized camera", secs,
+         hit_gate(h, rays, bvh.tris, "rayloop quantized"), extra)
+
+    # the wavefront engine on the same rays (no fallback: the h100 row's
+    # cap), then its two other leaf tests
+    for test in ("mt",) + ENGINES_LEAF_TESTS:
+        with use_config(tri_test=test):
+            (h, ovf), secs, extra = engine_run(
+                lambda: intersect_wavefront(bvh.bvh8, rays,
+                                            cap_factor=cap), dev, None,
+                profile_every or test == "mt")
+            if ovf:
+                raise AssertionError(f"wavefront {test}: frontier overflow "
+                                     f"at cap {cap}")
+            line(f"wavefront tri_test={test} camera", secs,
+                 hit_gate(h, rays, bvh.tris, f"wavefront {test}"), extra)
+            (_, occ, ovf), secs, extra = engine_run(
+                lambda: intersect_wavefront(bvh.bvh8, srays, cutoff,
+                                            cap_factor=cap, any_hit=True),
+                dev, None, profile_every)
+            if ovf:
+                raise AssertionError(f"wavefront {test} shadow: overflow")
+            line(f"wavefront tri_test={test} shadow", secs,
+                 shadow_gate(occ, srays, bvh.tris, f"wavefront {test}"),
+                 extra)
+
+    # the BVH2 engine: layout="bvh2" in every leaf test, and max_leaf=16
+    t0 = time.perf_counter()
+    b2 = {"layout=bvh2": BVH(tris, layout="bvh2", device=dev),
+          "max_leaf=16": BVH(tris, max_leaf=16, device=dev)}
+    build_s = time.perf_counter() - t0
+    first = True
+    for what, b in b2.items():
+        if b.bvh8 is not None or b._engine(rays, 1e30, "auto") != "bvh2":
+            raise AssertionError(f"{what}: not on the BVH2 path")
+        for test in ("mt",) + (ENGINES_LEAF_TESTS if b is b2["layout=bvh2"]
+                               else ()):
+            with use_config(tri_test=test):
+                h, secs, extra = engine_run(lambda: b.intersect(rays), dev,
+                                            stack.LAST_CALL,
+                                            profile_every or first)
+                first = False
+                line(f"BVH2 engine {what} (leaves up to {b.leaf_max}) "
+                     f"tri_test={test} camera", secs,
+                     hit_gate(h, rays, b.tris, f"bvh2 {what} {test}"), extra)
+                occ, secs, extra = engine_run(
+                    lambda: b.is_occluded(srays, cutoff), dev,
+                    stack.LAST_CALL, profile_every)
+                line(f"BVH2 engine {what} tri_test={test} shadow", secs,
+                     shadow_gate(occ, srays, b.tris, f"bvh2 {what} {test}"),
+                     extra)
+
+    # intersect_one against the camera trace's hit for that ray
+    i = int(torch.nonzero(hits.prim >= 0)[0])
+    one = bvh.intersect_one(rays.o[i].cpu().numpy(), rays.d[i].cpu().numpy())
+    if one["prim"] != int(hits.prim[i]) or abs(
+            float(one["t"]) - float(hits.t[i])) > 1e-4 * float(hits.t[i]):
+        raise AssertionError(f"intersect_one: {one} against prim "
+                             f"{int(hits.prim[i])} t {float(hits.t[i])}")
+    edges = shared_edge_leaks(dev)
+
+    # the two-level rayloop on phase 12b's inst8, beside the bucketed engine
+    tp, _, irays, _, icenter, iextent = instance_scene(bvh, tris, INST8["n"],
+                                                       dev)
+    Ri = irays.o.shape[0]
+    iidx = middle(Ri, ORACLE_RAYS, dev)
+    ref, _, _ = tlas_oracle(tp, irays, iidx)
+    ttab = tlas_rayloop.make_tlas_rayloop_tables(tp.tlas)
+    (h, sovf), secs, extra = engine_run(
+        lambda: tlas_rayloop.intersect_tlas_rayloop(ttab, irays), dev,
+        tlas_rayloop.LAST_CALL)
+    if int(sovf.sum()):
+        raise AssertionError(f"tlas rayloop: {int(sovf.sum())} stack "
+                             "overflows")
+    line("intersect_tlas_rayloop inst8", secs,
+         tlas_gates(h.take(iidx), ref, "tlas rayloop"), extra, Ri)
+    ht = torch.where(h.prim >= 0, h.t, torch.ones_like(h.t))
+    pts = irays.o + ht[:, None] * irays.d
+    light = torch.as_tensor((icenter + np.array([0, 2.0, 0]) * iextent)
+                            .astype(np.float32), device=dev)
+    israys = make_rays(light.expand_as(pts), pts - light)
+    (occ, sovf), secs, extra = engine_run(
+        lambda: tlas_rayloop.is_occluded_tlas_rayloop(ttab, israys, cutoff),
+        dev, tlas_rayloop.LAST_CALL, profile_every)
+    sref, _, _ = tlas_oracle(tp, israys, iidx)
+    agree = float((occ[iidx] == ((sref.prim >= 0) & (sref.t < cutoff)))
+                  .float().mean())
+    if int(sovf.sum()) or agree < 0.999:
+        raise AssertionError(f"tlas rayloop shadow: {int(sovf.sum())} "
+                             f"overflows, lockstep agreement {agree}")
+    line("is_occluded_tlas_rayloop inst8", secs,
+         f"occluded {float(occ.float().mean()):.4f}, lockstep segment "
+         f"agreement {agree:.5f}", extra, Ri)
+    sync(dev)
+    launches = {k: v for table in launch_tables() for k, v in table.items()
+                if v}
+    if launches:
+        raise AssertionError(f"phase 17's engines launched kernels: "
+                             f"{launches}")
+    (_, _, n_cand), = tile_candidates(tp, irays, 1)
+    kw = {k: v for k, v in INST8.items() if k != "n"}
+    kw.update(rounds=max(INST8["rounds"], int(n_cand.max()) + 1),
+              wf_cap_factor=cap)
+    bucketed = wall_s(lambda: intersect_tlas_packets2_bucketed(
+        tp, irays, **kw), dev)
+    print(f"phase 17 engines: {R} camera rays on random64k, {Ri} on inst8 "
+          f"(bucketed engine {Ri / bucketed / 1e6:.3f} MRays/s beside the "
+          f"two-level rayloop); BVH2 builds {build_s:.3f} s; intersect_one "
+          f"prim {int(one['prim'])} t {float(one['t']):.6f} equal to the "
+          f"camera trace's; shared-edge rays "
+          + ", ".join(f"{k} {n} with {leaks} leaks"
+                      for k, (n, leaks) in edges.items())
+          + f"; no max_rounds raise; launches of the package's kernels 0; "
+          f"{time.perf_counter() - start:.1f} s [{gpu_line}]",
+          flush=True)
+
+
 OCC6 = {"C": ("tbvh_mt_gathered_occupancy",),
         "G": ("tbvh_cull_blocks_occupancy",)}
 OCC11 = {"D-v2": ("tbvh_leaf_resolve_v2_occupancy", 0),
@@ -3155,6 +3536,7 @@ def main(argv=()):
     render_only = "--render" in argv
     foliage_only = "--foliage" in argv
     probes_only = "--probes" in argv
+    engines_only = "--engines" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3199,6 +3581,10 @@ def main(argv=()):
         return 0
     if probes_only:
         phase_probes(bvh, gpu_line)
+        return 0
+    if engines_only:
+        phase_engines(bvh, tris, rays, scene[2], extent, gpu_line,
+                      profile_every=True)
         return 0
     if resolves_only:
         # phases 6 and 11 alone, on the API cull's descriptors
@@ -3248,6 +3634,7 @@ def main(argv=()):
                                              gpu_line)
     kern.update(omap_kern)
     launches.update(mt_fused_omap=omap_launches["mt_fused_omap"])
+    phase_engines(bvh, tris, rays, scene[2], extent, gpu_line)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -114,43 +114,87 @@ def test_from_vertex_buffer_equals_direct(scene):
     np.testing.assert_allclose(hi, tris.reshape(-1, 3).max(0))
 
 
+def _same_bvh_hits(pb, jb, o, d, what, **kw):
+    """Both BVHs' intersect(**kw) on the same rays: the parity standard,
+    and the same hits as brute force."""
+    h = pb.intersect(tt.make_rays(o, d, device="cpu"), **kw)
+    _assert_hits(h, jb.intersect(tb.make_rays(o, d), **kw))
+    _assert_hits(h, brute_force_closest(tt.make_rays(o, d, device="cpu"),
+                                        pb.tris))
+    assert 0 < (h.prim.numpy() >= 0).mean() < 1, what
+    return h
+
+
 @pytest.mark.parametrize("call", [
     "wavefront_watertight", "engine_rayloop", "small_batch_baldwin",
     "engine_lockstep2", "occluded_watertight", "builder_median",
-    "builder_lbvh", "layout_bvh2", "bins_not_8"])
+    "layout_bvh2", "bins_not_8"])
+def test_ported_paths_match_jax(scene, call):
+    """The calls that raised NotImplementedError before the BVH2, rayloop
+    and leaf-test engines were ported: each against the JAX API on the
+    same call (prim equal, t within 1e-4, u and v within 1e-3, occlusion
+    equal), and against brute force."""
+    from tinybvh_tpu.config import use_config as jax_config
+
+    tris, pb, jb = scene
+    o, d = _camera(T=4)
+    if call in ("wavefront_watertight", "small_batch_baldwin"):
+        test = "watertight" if call == "wavefront_watertight" else "baldwin"
+        engine = "wavefront" if test == "watertight" else "auto"
+        with use_config(tri_test=test), jax_config(tri_test=test):
+            _same_bvh_hits(pb, jb, o, d, call, engine=engine)
+    elif call == "engine_rayloop":
+        h = _same_bvh_hits(pb, jb, o, d, call, engine="rayloop")
+        pts = o + np.where(h.prim.numpy() >= 0, h.t.numpy(), 20.0)[:, None] * d
+        src = np.broadcast_to(np.array([5.0, 14.0, 5.0], np.float32),
+                              pts.shape).copy()
+        seg = (pts - src).astype(np.float32)
+        occ = pb.is_occluded(tt.make_rays(src, seg, device="cpu"), 0.999,
+                             engine="rayloop").numpy()
+        np.testing.assert_array_equal(occ, np.asarray(jb.is_occluded(
+            tb.make_rays(src, seg), 0.999, engine="rayloop")))
+        np.testing.assert_array_equal(occ, brute_force_any(
+            tt.make_rays(src, seg, device="cpu"), pb.tris, 0.999).numpy())
+        assert 0 < occ.mean() < 1
+    elif call == "engine_lockstep2":
+        # a ragged batch through the BVH2 engine
+        o, d = np.concatenate([o, o[:100]]), np.concatenate([d, d[:100]])
+        _same_bvh_hits(pb, jb, o, d, call, engine="lockstep2")
+    elif call == "occluded_watertight":
+        tm = np.random.default_rng(8).uniform(5.0, 15.0, o.shape[0]).astype(
+            np.float32)
+        with use_config(tri_test="watertight"), \
+                jax_config(tri_test="watertight"):
+            occ = pb.is_occluded(tt.make_rays(o, d, device="cpu"),
+                                 torch.from_numpy(tm)).numpy()
+            jocc = np.asarray(jb.is_occluded(tb.make_rays(o, d),
+                                             jnp.asarray(tm)))
+        np.testing.assert_array_equal(occ, jocc)
+        assert 0 < occ.mean() < 1
+    else:
+        kw = {"builder_median": dict(builder="median"),
+              "layout_bvh2": dict(layout="bvh2"),
+              "bins_not_8": dict(bins=4)}[call]
+        pb2 = tt.BVH(tris, device="cpu", **kw)
+        jb2 = tb.BVH(tris, **kw)
+        assert pb2.leaf_max == jb2.leaf_max
+        assert (pb2.bvh8 is None) == (jb2.bvh8 is None) == (
+            call == "layout_bvh2")
+        if pb2.bvh8 is not None:
+            np.testing.assert_array_equal(pb2.bvh8.leaf_prim.numpy(),
+                                          np.asarray(jb2.bvh8.leaf_prim))
+        np.testing.assert_array_equal(pb2.packed_tris.numpy(),
+                                      np.asarray(jb2.packed_tris))
+        _same_bvh_hits(pb2, jb2, o, d, call)
+
+
+@pytest.mark.parametrize("call", ["builder_lbvh"])
 def test_unported_paths_raise(scene, call):
-    """What the API still lacks raises NotImplementedError. Small, ragged
-    and per-ray-t_max batches go to the wavefront engine, and the engine
-    itself is ported: those cases ask for what it still lacks (the
-    watertight and Baldwin-Weber leaf tests, ROADMAP queue 1 item 2) or
-    for the BVH2 lockstep engine (slice 6)."""
-    tris, pb, _ = scene
-    o, d = _camera()
-    rays = tt.make_rays(o, d, device="cpu")
-    with pytest.raises(NotImplementedError):
-        if call == "wavefront_watertight":
-            with use_config(tri_test="watertight"):
-                pb.intersect(rays, engine="wavefront")
-        elif call == "engine_rayloop":
-            pb.is_occluded(rays, 1.0, engine="rayloop")
-        elif call == "small_batch_baldwin":
-            with use_config(tri_test="baldwin"):
-                pb.intersect(tt.make_rays(o[:2048], d[:2048], device="cpu"))
-        elif call == "engine_lockstep2":
-            pb.intersect(tt.make_rays(np.concatenate([o, o[:100]]),
-                                      np.concatenate([d, d[:100]]), device="cpu"),
-                         engine="lockstep2")
-        elif call == "occluded_watertight":
-            with use_config(tri_test="watertight"):
-                pb.is_occluded(rays, torch.full((o.shape[0],), 5.0))
-        elif call == "builder_median":
-            tt.BVH(tris, builder="median", device="cpu")
-        elif call == "builder_lbvh":
-            tt.BVH(tris, builder="lbvh", device="cpu")
-        elif call == "layout_bvh2":
-            tt.BVH(tris, layout="bvh2", device="cpu")
-        else:
-            tt.BVH(tris, bins=4, device="cpu")
+    """What the API still lacks raises NotImplementedError naming the JAX
+    module that has it: the LBVH builder (ROADMAP queue 1 item 5)."""
+    tris, _, _ = scene
+    with pytest.raises(NotImplementedError, match="lbvh"):
+        tt.BVH(tris, builder="lbvh", device="cpu")
 
 
 def test_validate_rays_gate():

@@ -30,6 +30,9 @@ def test_import_loads_no_jax():
         "import tinybvh_tpu_torch.builders.refit\n"
         "import tinybvh_tpu_torch.layouts.bvh2\n"
         "import tinybvh_tpu_torch.traverse.stack\n"
+        "import tinybvh_tpu_torch.traverse.rayloop\n"
+        "import tinybvh_tpu_torch.tlas.rayloop\n"
+        "import tinybvh_tpu_torch.core.vecmath, tinybvh_tpu_torch.config\n"
         "import tinybvh_tpu_torch.probes.gather\n"
         "import tinybvh_tpu_torch.probes.mt_ablation\n"
         "import tinybvh_tpu_torch.core.rng\n"

@@ -7,7 +7,7 @@ ROADMAP's parity standard (tests/test_packet2.py:141-160): prim equal on
 every ray, t within rtol = atol = 1e-4, u and v within 1e-3; against brute
 force t within rtol 1e-4, atol 1e-5 as tests/test_wavefront.py. The
 quantized CWBVH case (test_quantized_cwbvh_matches) waits for ROADMAP
-queue 1, slice 11.
+queue 1 item 5.
 """
 
 import numpy as np
@@ -145,20 +145,44 @@ def test_wavefront_overflow_flag_matches_jax():
     assert ovf and bool(jovf)
 
 
-@pytest.mark.parametrize("what", ["watertight", "baldwin", "omap", "bvh8q"])
+@pytest.mark.parametrize("what", ["watertight", "baldwin"])
+def test_leaf_tests_match_jax(what):
+    """Config.tri_test="watertight" / "baldwin" through the wavefront
+    engine, closest hit and any hit, against the JAX engine under the
+    same config (prim equal, t / u / v within the parity tolerances,
+    occlusion equal) and brute force (Möller–Trumbore: the hit masks
+    agree but for razor-edge rays)."""
+    from tinybvh_tpu.config import use_config as jax_config
+
+    tris = random_tris(2000, seed=9)
+    jb8, b8 = _both(tris)
+    o, d = _rays(61, 512)
+    rays = make_rays(o, d, device="cpu")
+    jrays = tb.make_rays(o, d)
+    with use_config(tri_test=what), jax_config(tri_test=what):
+        hits, ovf = intersect_wavefront(b8, rays, cap_factor=8)
+        jh, jovf = jwf.intersect_wavefront(jb8, jrays, cap_factor=8)
+        occ = is_occluded_wavefront(b8, rays, 4.0)
+        jocc = jwf.is_occluded_wavefront(jb8, jrays, 4.0)
+    assert not ovf and not bool(jovf)
+    assert_same_hits(hits, jh)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    ref = brute_force_closest(rays, torch.from_numpy(tris))
+    hit = hits.prim.numpy() >= 0
+    assert np.mean(hit == (ref.prim.numpy() >= 0)) > 0.99
+    assert 0.1 < hit.mean() < 1.0 and 0.0 < occ.numpy().mean() < 1.0
+
+
+@pytest.mark.parametrize("what", ["omap", "bvh8q"])
 def test_unported_options_raise(what):
-    """The leaf tests and the layout the port lacks raise
-    NotImplementedError; a micromap table not aligned with the leaf rows
-    raises ValueError."""
+    """The quantized layout the port lacks raises NotImplementedError; a
+    micromap table not aligned with the leaf rows raises ValueError."""
     tris = random_tris(20, seed=1)
     _, b8 = _both(tris)
     rays = make_rays(*_rays(1, 8), device="cpu")
     err = ValueError if what == "omap" else NotImplementedError
     with pytest.raises(err):
-        if what in ("watertight", "baldwin"):
-            with use_config(tri_test=what):
-                intersect_wavefront(b8, rays)
-        elif what == "omap":
+        if what == "omap":
             intersect_wavefront(b8, rays, omap=torch.ones(
                 (b8.leaf_prim.shape[0] + 1, 4, 2, 2), dtype=torch.bool))
         else:

@@ -2,11 +2,14 @@
 (≙ tinybvh_tpu/api.py; bvh.Build + bvh.Intersect, tiny_bvh.h:884-960, and
 the TLAS build + IntersectTLAS, tiny_bvh.h:2221-2259, 3306-3380).
 
-The port covers the native SAH build, the 8-wide collapse, the packet
-tables, three engines: the packet2 trace with the wavefront retrace (on
-a CUDA device it runs the hand-written kernels; on the CPU their plain
-twins), the wavefront and the per-ray-stack lockstep engine; `BVH.refit`
-(the BVH2 refit and a re-collapse, on the BVH's device); and `TLAS` over
+Builders: the native SAH build ("sah" at 8 bins), the numpy one ("sah"
+at other bin counts, "median"). Layouts: the 8-wide BVH8 (leaves of at
+most 4 triangles) or, for layout != "bvh8" or larger leaves, the BVH2
+alone. Engines over the BVH8: the packet2 trace with the wavefront
+retrace (on a CUDA device it runs the hand-written kernels; on the CPU
+their plain twins), the wavefront, the per-ray-stack lockstep and the
+rayloop engine; over the BVH2: the lockstep BVH2 engine. `BVH.refit`
+(the BVH2 refit and a re-collapse, on the BVH's device); `TLAS` over
 instanced BLASes (the two-level wavefront, then the two-level lockstep
 engine). An overflow the wavefront retrace cannot repair raises
 RuntimeError: approximate hits are never returned silently."""
@@ -16,8 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tinybvh_tpu_torch.core.rays import Hits, Rays, default_device
+from tinybvh_tpu_torch.core.rays import Hits, Rays, default_device, make_rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
+
+ENGINES = ("auto", "packets", "wavefront", "lockstep", "lockstep2",
+           "rayloop")
+
 
 def _unsupported(what: str, jax_module: str):
     """What the port lacks, named by the JAX module that has it."""
@@ -25,11 +32,25 @@ def _unsupported(what: str, jax_module: str):
                                f"{jax_module})")
 
 
+def _check_nans(what, *xs):
+    """Config.debug_nans: raise FloatingPointError where a float tensor
+    of xs holds a NaN."""
+    for x in xs:
+        if (isinstance(x, torch.Tensor) and x.is_floating_point()
+                and bool(torch.isnan(x).any())):
+            raise FloatingPointError(f"{what}: NaN (Config.debug_nans)")
+
+
 class BVH:
     """A BVH over a triangle soup: tris (N, 3, 3) float32 (or a (3N, 3|4)
     vertex soup), built on the host and uploaded to `device` (default:
     the card; with no CUDA device it raises RuntimeError unless
-    device="cpu" asks for the kernels' plain versions)."""
+    device="cpu" asks for the kernels' plain versions).
+
+    builder: "sah" (binned SAH; the native C build at 8 bins, the numpy
+    one otherwise) or "median" (≙ BuildQuick); layout: "bvh8" keeps the
+    8-wide layout where every leaf holds at most 4 triangles, any other
+    value (e.g. "bvh2") keeps the BVH2 alone (bvh8 is None)."""
 
     def __init__(self, tris, builder: str = "sah", max_leaf: int | None = None,
                  bins: int | None = None, layout: str = "bvh8", device=None):
@@ -41,16 +62,11 @@ class BVH:
         cfg = get_config()
         max_leaf = cfg.max_leaf if max_leaf is None else max_leaf
         bins = cfg.bins if bins is None else bins
-        if builder != "sah":
-            raise _unsupported(f"builder={builder!r}",
-                               "api.py BVH.__init__ with builders/"
-                               "{sweep,sbvh,lbvh,binned_jax}.py")
-        if layout != "bvh8":
-            raise _unsupported(f"layout={layout!r}",
-                               "traverse/stack.py and layouts/cwbvh.py")
-        if bins != 8:
-            raise _unsupported("the numpy SAH builder (bins != 8)",
-                               "api.py BVH.__init__ with builders/binned.py")
+        if builder == "lbvh":
+            raise _unsupported("builder='lbvh' (ROADMAP queue 1 item 5)",
+                               "builders/lbvh.py")
+        if builder not in ("sah", "median"):
+            raise ValueError(f"unknown builder {builder!r}")
         self.device = default_device(device)
         if isinstance(tris, torch.Tensor):
             tris = tris.detach().cpu().numpy()
@@ -66,28 +82,36 @@ class BVH:
                              f"got {tris_host.shape}")
         self.tris = torch.from_numpy(tris_host).to(self.device)
         self.device = self.tris.device      # "cuda" -> "cuda:0"
-        # the native C build and collapse (with leaf combining); without a
-        # C compiler the numpy builder and the Python collapse, as in JAX
-        has_cc = native.available()
-        if has_cc:
+        # as JAX: the native C build where it serves (SAH at 8 bins), the
+        # numpy builder otherwise (other bin counts, the median split, no
+        # C compiler), whose tree takes the Python collapse
+        native_built = (builder == "sah" and bins == 8
+                        and native.available())
+        if native_built:
             _, self._host = native.build_binned_native(
                 tris_host, max_leaf=max_leaf, return_host=True)
-        else:
-            _, self._host = build_binned(tris_host, max_leaf=max_leaf,
+        elif builder == "median":
+            _, self._host = build_binned(tris_host, strategy="median",
                                          return_host=True, device="cpu")
-        self.leaf_max = int(self._host["count"].max())
-        if self.leaf_max > 4:
-            raise _unsupported("the BVH2 layout (leaves over 4 tris)",
-                               "traverse/stack.py intersect_bvh2")
-        if has_cc:
-            self._bvh8_host = native.collapse_bvh8_native(
-                self._host, tris_host, combine=cfg.leaf_combine)
         else:
-            self._bvh8_host = collapse_bvh2(None, tris_host, host=self._host,
-                                            as_host=True)
-        self.bvh8 = BVH8.from_host(self._bvh8_host, self.device)
+            _, self._host = build_binned(tris_host, bins=bins,
+                                         max_leaf=max_leaf, return_host=True,
+                                         device="cpu")
+        self.leaf_max = int(self._host["count"].max())
+        self.packed_tris = torch.from_numpy(
+            tris_host[self._host["prim_idx"]]).to(self.device)
         self.layout = layout
+        self.bvh8 = self._bvh8_host = None
+        if layout == "bvh8" and self.leaf_max <= 4:
+            if native_built:
+                self._bvh8_host = native.collapse_bvh8_native(
+                    self._host, tris_host, combine=cfg.leaf_combine)
+            else:
+                self._bvh8_host = collapse_bvh2(None, tris_host,
+                                                host=self._host, as_host=True)
+            self.bvh8 = BVH8.from_host(self._bvh8_host, self.device)
         self._packet_aux = None
+        self._rayloop_tables = None
         self._bvh2 = None
         self._refit_plan = None
         self._aabb = (self._host["node_min"][0], self._host["node_max"][0])
@@ -114,10 +138,27 @@ class BVH:
         """Lazy packet tables (traverse.packet2) for this BVH8, built on
         the BVH's device."""
         if self._packet_aux is None:
+            if self.bvh8 is None:
+                raise ValueError("packet tracing needs the bvh8 layout")
             from tinybvh_tpu_torch.traverse.packet2 import build_packet_aux
 
             self._packet_aux = build_packet_aux(self.bvh8)
         return self._packet_aux
+
+    @property
+    def rayloop_tables(self):
+        """Lazy flat tables of the rayloop engine (traverse.rayloop), from
+        the collapse's host copy where there is one."""
+        if self._rayloop_tables is None:
+            if self.bvh8 is None:
+                raise ValueError("rayloop tracing needs the bvh8 layout")
+            from tinybvh_tpu_torch.traverse.rayloop import (
+                make_rayloop_tables,
+            )
+
+            self._rayloop_tables = make_rayloop_tables(
+                self.bvh8, host=self._bvh8_host)
+        return self._rayloop_tables
 
     @property
     def bvh2(self):
@@ -139,25 +180,40 @@ class BVH:
         refit)."""
         return self._aabb
 
-    def _engine(self, rays: Rays, t_max, engine: str) -> str:
-        """The engine of one call (≙ JAX api.py:244-289): "packets" for
-        engine="packets", and for "auto" on a CUDA BVH with a scalar t_max
-        and R % 256 == 0, R >= 4096 (CUDA is the counterpart of the TPU
-        gate); "lockstep" for engine="lockstep"; "wavefront" otherwise
-        (small or ragged batches, per-ray t_max, the CPU)."""
-        if engine in ("rayloop", "lockstep2"):
-            raise _unsupported(f"engine={engine!r}",
-                               "traverse/stack.py and traverse/rayloop.py")
-        if engine not in ("auto", "packets", "wavefront", "lockstep"):
+    def _engine(self, rays: Rays, t_max, engine: str,
+                any_hit: bool = False) -> str:
+        """The engine of one call (≙ JAX api.py:210-323), one of
+        "rayloop", "packets", "wavefront", "lockstep" (BVH8) and "bvh2":
+          * "rayloop" for engine="rayloop" (is_occluded: only with a
+            BVH8, as JAX's, which otherwise takes the BVH2 engine);
+          * "packets" for engine="packets", and for "auto" on a CUDA BVH8
+            with R % 256 == 0 and R >= 4096 (the counterpart of JAX's TPU
+            gate); both need a scalar t_max, and is_occluded without a
+            BVH8 takes the BVH2 engine as JAX's does;
+          * without a BVH8, "bvh2";
+          * "lockstep2" is "bvh2" in intersect and, as in JAX, "lockstep"
+            in is_occluded;
+          * "lockstep" for engine="lockstep", else "wavefront" (small or
+            ragged batches, a per-ray t_max, the CPU)."""
+        if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}")
         if rays.o.device != self.device:
             raise ValueError(f"rays on {rays.o.device}, BVH on {self.device}")
+        has8 = self.bvh8 is not None
+        if engine == "rayloop" and (has8 or not any_hit):
+            return "rayloop"
         R = rays.o.shape[0]
         t_scalar = not (hasattr(t_max, "shape") and len(t_max.shape) > 0)
-        if t_scalar and (engine == "packets" or (
-                engine == "auto" and self.device.type == "cuda"
-                and R % 256 == 0 and R >= 4096)):
+        if t_scalar and (has8 or not any_hit) and (
+                engine == "packets" or (
+                    engine == "auto" and has8
+                    and self.device.type == "cuda"
+                    and R % 256 == 0 and R >= 4096)):
             return "packets"
+        if not has8:
+            return "bvh2"
+        if engine == "lockstep2":
+            return "lockstep" if any_hit else "bvh2"
         return "lockstep" if engine == "lockstep" else "wavefront"
 
     def _packet_trace(self, rays: Rays, t_max, any_hit: bool):
@@ -192,39 +248,108 @@ class BVH:
                 "be exact")
         return out
 
+    @staticmethod
+    def _overflowed(sovf):
+        """The rays whose rayloop stack overflowed, or None (one host
+        sync). JAX re-traces the whole call with the lockstep engine; the
+        port re-traces these rays alone: each ray's result is exact
+        either way."""
+        deep = torch.nonzero(sovf).squeeze(1)
+        return deep if deep.numel() else None
+
+    @staticmethod
+    def _take_t(t_max, idx):
+        per_ray = hasattr(t_max, "shape") and len(t_max.shape) > 0
+        return t_max[idx] if per_ray else t_max
+
     def intersect(self, rays: Rays, t_max=BVH_FAR,
                   engine: str = "auto") -> Hits:
         """Closest hit. engine:
           "auto"      packets on CUDA for large tile-shaped batches with a
-                      scalar t_max, else the wavefront;
+                      scalar t_max, else the wavefront; the BVH2 engine
+                      without a BVH8;
           "packets"   the packet2 pipeline with coherence sort and the
-                      wavefront retrace (R % 256 == 0);
+                      wavefront retrace (R % 256 == 0; ValueError without
+                      a BVH8);
           "wavefront" level-synchronous BFS; falls back to "lockstep"
                       when its frontier overflows;
-          "lockstep"  per-ray stacks (traverse.wide).
-        All are exact (≙ the reference's per-layout Intersect)."""
+          "lockstep"  per-ray stacks over the BVH8 (traverse.wide);
+          "lockstep2" per-ray stacks over the BVH2 (traverse.stack);
+          "rayloop"   per-ray ordered traversal with round compaction
+                      (traverse.rayloop); the rays whose stack overflows
+                      are re-traced by "lockstep" (ValueError without a
+                      BVH8).
+        All are exact (≙ the reference's per-layout Intersect). With
+        Config.debug_nans, a NaN in the rays or the hits raises
+        FloatingPointError."""
+        from tinybvh_tpu_torch.config import get_config
         from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
         from tinybvh_tpu_torch.traverse.wide import intersect_bvh8
 
+        nans = get_config().debug_nans
+        if nans:
+            _check_nans("BVH.intersect input", rays.o, rays.d, t_max)
         eng = self._engine(rays, t_max, engine)
         if eng == "packets":
-            return self._packet_trace(rays, t_max, any_hit=False)
-        if eng == "wavefront":
-            h, ovf = intersect_wavefront(self.bvh8, rays, t_max, cap_factor=8)
-            if not ovf:
-                return h
-        return intersect_bvh8(self.bvh8, rays, t_max)
+            h = self._packet_trace(rays, t_max, any_hit=False)
+        elif eng == "bvh2":
+            from tinybvh_tpu_torch.traverse.stack import intersect_bvh2
+
+            h = intersect_bvh2(self.bvh2, self.packed_tris, rays, t_max,
+                               leaf_max=self.leaf_max)
+        elif eng == "rayloop":
+            from tinybvh_tpu_torch.traverse.rayloop import intersect_rayloop
+
+            h, sovf = intersect_rayloop(self.rayloop_tables, rays, t_max)
+            deep = self._overflowed(sovf)
+            if deep is not None:   # stacks too shallow: the deep engine
+                fix = intersect_bvh8(self.bvh8, rays.take(deep),
+                                     self._take_t(t_max, deep))
+                for k in ("t", "u", "v", "prim", "inst"):
+                    getattr(h, k)[deep] = getattr(fix, k)
+        elif eng == "wavefront":
+            h, ovf = intersect_wavefront(self.bvh8, rays, t_max,
+                                         cap_factor=8)
+            if ovf:
+                h = intersect_bvh8(self.bvh8, rays, t_max)
+        else:
+            h = intersect_bvh8(self.bvh8, rays, t_max)
+        if nans:
+            _check_nans("BVH.intersect", h.t, h.u, h.v)
+        return h
 
     def is_occluded(self, rays: Rays, t_max,
                     engine: str = "auto") -> torch.Tensor:
         """(R,) bool: any hit in (0, t_max); engine semantics as in
-        intersect() (≙ JAX api.py:294-323)."""
+        intersect() (≙ JAX api.py:294-323), with JAX's two routings: with
+        a BVH8, "lockstep2" takes the BVH8 lockstep engine, and without
+        one every engine takes the BVH2 engine. With Config.debug_nans, a
+        NaN in the rays or t_max raises FloatingPointError."""
+        from tinybvh_tpu_torch.config import get_config
         from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
         from tinybvh_tpu_torch.traverse.wide import is_occluded_bvh8
 
-        eng = self._engine(rays, t_max, engine)
+        if get_config().debug_nans:
+            _check_nans("BVH.is_occluded input", rays.o, rays.d, t_max)
+        eng = self._engine(rays, t_max, engine, any_hit=True)
         if eng == "packets":
             return self._packet_trace(rays, t_max, any_hit=True)
+        if eng == "bvh2":
+            from tinybvh_tpu_torch.traverse.stack import is_occluded_bvh2
+
+            return is_occluded_bvh2(self.bvh2, self.packed_tris, rays, t_max,
+                                    leaf_max=self.leaf_max)
+        if eng == "rayloop":
+            from tinybvh_tpu_torch.traverse.rayloop import (
+                is_occluded_rayloop,
+            )
+
+            occ, sovf = is_occluded_rayloop(self.rayloop_tables, rays, t_max)
+            deep = self._overflowed(sovf)
+            if deep is not None:
+                occ[deep] = is_occluded_bvh8(self.bvh8, rays.take(deep),
+                                             self._take_t(t_max, deep))
+            return occ
         if eng == "wavefront":
             _, occ, ovf = intersect_wavefront(self.bvh8, rays, t_max,
                                               cap_factor=8, any_hit=True)
@@ -232,14 +357,26 @@ class BVH:
                 return occ
         return is_occluded_bvh8(self.bvh8, rays, t_max)
 
+    def intersect_one(self, origin, direction, t_max=BVH_FAR):
+        """One ray (the reference's scalar Intersect): a dict of numpy
+        scalars t, u, v and prim."""
+        rays = make_rays(np.asarray(origin, np.float32)[None],
+                         np.asarray(direction, np.float32)[None],
+                         device=self.device)
+        h = self.intersect(rays, t_max)
+        return {k: getattr(h, k).cpu().numpy()[0]
+                for k in ("t", "u", "v", "prim")}
+
     # -- maintenance ------------------------------------------------------
     def refit(self, new_tris=None):
         """New boxes after vertex deformation, topology kept (≙ JAX
-        BVH.refit): the BVH2 refit (builders.refit) on the BVH's device,
-        then bvh8 re-collapsed from it (layouts.mbvh.collapse_bvh2, no
-        leaf combining). The host copies and the packet tables are
-        dropped; the next packet trace builds the tables on the device.
-        new_tris: (N, 3, 3) in the original prim order."""
+        BVH.refit): the triangles repacked, the BVH2 refit
+        (builders.refit) on the BVH's device, then, where there is a
+        BVH8, bvh8 re-collapsed from it (layouts.mbvh.collapse_bvh2, no
+        leaf combining). The host copies, the packet tables and the
+        rayloop tables are dropped; the next trace that needs them
+        builds them on the device. new_tris: (N, 3, 3) in the original
+        prim order."""
         from tinybvh_tpu_torch.builders.refit import refit as _refit
         from tinybvh_tpu_torch.builders.refit import refit_plan
         from tinybvh_tpu_torch.layouts.mbvh import collapse_bvh2
@@ -252,15 +389,17 @@ class BVH:
                 raise ValueError(f"refit needs {tuple(self.tris.shape)} "
                                  f"triangles, got {tuple(new.shape)}")
             self.tris = new
-        packed = pack_tris(self.bvh2, self.tris)
+        self.packed_tris = pack_tris(self.bvh2, self.tris)
         if self._refit_plan is None:
             self._refit_plan = refit_plan(self.bvh2)
-        self.bvh2 = _refit(self.bvh2, packed, self._refit_plan,
+        self.bvh2 = _refit(self.bvh2, self.packed_tris, self._refit_plan,
                            leaf_max=max(self.leaf_max, 1))
-        self.bvh8 = collapse_bvh2(self.bvh2, None, tris_dev=self.tris)
-        # refit moved the geometry: host copies and packet tables are stale
+        if self.bvh8 is not None:
+            self.bvh8 = collapse_bvh2(self.bvh2, None, tris_dev=self.tris)
+        # refit moved the geometry: host copies and tables are stale
         self._bvh8_host = None
         self._packet_aux = None
+        self._rayloop_tables = None
         self._aabb = (self.bvh2.node_min[0].cpu().numpy(),
                       self.bvh2.node_max[0].cpu().numpy())
         return self
@@ -300,6 +439,9 @@ class TLAS:
         raw, host8s = [], []
         for b in blases:
             if isinstance(b, BVH):
+                if b.bvh8 is None:
+                    raise ValueError("TLAS BLASes need the bvh8 layout "
+                                     "(max_leaf <= 4)")
                 raw.append(b.bvh8)
                 host8s.append(b._bvh8_host)
             elif isinstance(b, BVH8):

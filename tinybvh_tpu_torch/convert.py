@@ -7,12 +7,14 @@ e.g. jax arrays read back to the host) and returns the port's BVH8 and
 PacketAux on `device`; `from_numpy_bvh8` carries the BVH8 alone,
 `from_numpy_bvh2` a BVH2, `from_numpy_tlas8` a TLAS8,
 `from_numpy_tlas_packet` a TLASPacket with its BLASes and packet tables,
-`from_numpy_omap` an opacity micromap table and `from_numpy_voxels` a
-frozen VoxelSet (a dict of arrays). A PacketAux brings its micromaps
-(`omap`) along. Like the rest of the port, every function puts its
-tensors on the card unless `device` says otherwise, and raises without
-one (core/rays.py default_device): pass `device="cpu"` to carry the
-tables to the CPU. It imports nothing of JAX."""
+`from_numpy_omap` an opacity micromap table, `from_numpy_voxels` a
+frozen VoxelSet (a dict of arrays), and `from_numpy_rayloop_tables` /
+`from_numpy_tlas_rayloop_tables` the rayloop engines' tables. A
+PacketAux brings its micromaps (`omap`) along. Like the rest of the
+port, every function puts its tensors on the card unless `device` says
+otherwise, and raises without one (core/rays.py default_device): pass
+`device="cpu"` to carry the tables to the CPU. It imports nothing of
+JAX."""
 
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ from tinybvh_tpu_torch.layouts.bvh2 import BVH2
 from tinybvh_tpu_torch.layouts.mbvh import BVH8
 from tinybvh_tpu_torch.tlas.instance import TLAS8
 from tinybvh_tpu_torch.tlas.packet import TLASPacket
+from tinybvh_tpu_torch.tlas.rayloop import TLASRayLoopTables
 from tinybvh_tpu_torch.traverse.packet2 import PacketAux
+from tinybvh_tpu_torch.traverse.rayloop import RayLoopTables
 
 
 def _t(a, device):
@@ -86,3 +90,21 @@ def from_numpy_tlas_packet(tp_np, device=None) -> TLASPacket:
            for k in ("inst_inv", "inst_mask", "prim_tris", "prim_off",
                      "inst_wlo", "inst_whi")},
         blas_of=tuple(int(b) for b in tp_np.blas_of))
+
+
+def from_numpy_rayloop_tables(tb_np, device=None) -> RayLoopTables:
+    """A RayLoopTables, float (bounds) or quantized (qbounds, qmeta)."""
+    return RayLoopTables(**{
+        k: None if getattr(tb_np, k) is None else _t(getattr(tb_np, k),
+                                                     device)
+        for k in ("bounds", "qbounds", "qmeta", "child", "leaf_row",
+                  "leaf_prim")})
+
+
+def from_numpy_tlas_rayloop_tables(tb_np, device=None) -> TLASRayLoopTables:
+    return TLASRayLoopTables(
+        **{k: _t(getattr(tb_np, k), device)
+           for k in ("bounds", "child", "leaf_row", "leaf_prim", "inv_flat",
+                     "inst_mask")},
+        inst_root=_t(tb_np.inst_root, device).long(),
+        n_leaf_rows=int(tb_np.n_leaf_rows), n_inst=int(tb_np.n_inst))

@@ -22,6 +22,23 @@ def half_area(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
     return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
 
 
+def aabb_union(amin, amax, bmin, bmax):
+    """The union of boxes [amin, amax] and [bmin, bmax], (..., 3) each."""
+    return torch.minimum(amin, bmin), torch.maximum(amax, bmax)
+
+
+def aabb_empty(shape=(), dtype=torch.float32, device=None):
+    """(min = +FAR, max = -FAR) boxes of `shape`: the union's identity.
+    device: where they go (core/rays.py default_device: the card unless
+    asked)."""
+    from tinybvh_tpu_torch.core.rays import default_device
+
+    device = default_device(device)
+    shape = tuple(shape) + (3,)
+    return (torch.full(shape, BVH_FAR, dtype=dtype, device=device),
+            torch.full(shape, -BVH_FAR, dtype=dtype, device=device))
+
+
 def mat3_apply(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) applied to (..., 3): products summed left to right over
     the last axis, in f32. Never `@`, einsum or matmul on ray transforms:
@@ -82,3 +99,22 @@ def norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False):
 def normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """v / max(|v|, 1e-20) along `dim` (≙ JAX vecmath.normalize)."""
     return v / torch.clamp(norm(v, dim=dim, keepdim=True), min=1e-20)
+
+
+def morton_encode_3d(q: torch.Tensor) -> torch.Tensor:
+    """Interleave 10-bit integer coordinates (..., 3) into 30-bit Morton
+    codes, uint32 as in JAX (the LBVH builder's keys). Torch has no shift
+    for uint32, so the bit spread runs in int64 and is masked at each
+    step: the same bits as JAX's uint32 arithmetic."""
+
+    def spread(x):
+        x = x.to(torch.int64) & 0x3FF
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    code = (spread(q[..., 0]) << 2) | (spread(q[..., 1]) << 1) \
+        | spread(q[..., 2])
+    return code.to(torch.uint32)

@@ -48,3 +48,18 @@ def sphere_tris(n_lat: int = 16, n_lon: int = 32, radius: float = 1.0,
             if i < n_lat - 1:
                 tris.append([b, e, d])
     return np.asarray(tris, np.float32)
+
+
+def blue_noise_jitter(bn: np.ndarray, width: int, height: int,
+                      sample: int) -> np.ndarray:
+    """(H, W, 2) subpixel jitter from tiled blue noise: bn is an (n, 128,
+    128) stack of layers in [0, 1), and the layer pair rotates with the
+    sample index; the `jitter` argument of render.camera.primary_rays.
+    The tile itself is the reference's blue_noise_128x128x8_2d.raw (JAX
+    io/loaders.py load_blue_noise), a data file this package does not
+    carry."""
+    l0 = bn[(2 * sample) % bn.shape[0]]
+    l1 = bn[(2 * sample + 1) % bn.shape[0]]
+    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    return np.stack([l0[ys % 128, xs % 128], l1[ys % 128, xs % 128]],
+                    axis=-1).astype(np.float32)

@@ -14,10 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from tinybvh_tpu_torch.core.intersect import sphere_tri_overlap
+from tinybvh_tpu_torch.core.intersect import slab_test, sphere_tri_overlap
 from tinybvh_tpu_torch.core.rays import Hits, Rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
-from tinybvh_tpu_torch.traverse.stack import _slab
 
 STACK_DEPTH = 64
 _CHECK_EVERY = 8
@@ -161,8 +160,8 @@ def intersect_custom(bvh, rays: Rays, custom_intersect, t_max=BVH_FAR,
         prim = torch.where(improved, pid.gather(1, pick)[:, 0], prim)
 
         lc = torch.where(is_int, lf, 0)
-        dl = _slab(o, rd, t, bvh.node_min[lc], bvh.node_max[lc])
-        dr = _slab(o, rd, t, bvh.node_min[lc + 1], bvh.node_max[lc + 1])
+        dl = slab_test(o, rd, t, bvh.node_min[lc], bvh.node_max[lc])
+        dr = slab_test(o, rd, t, bvh.node_min[lc + 1], bvh.node_max[lc + 1])
         swap = dr < dl
         near_n = torch.where(swap, lc + 1, lc)
         far_n = torch.where(swap, lc, lc + 1)

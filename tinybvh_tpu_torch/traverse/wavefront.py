@@ -26,6 +26,12 @@ lookup produce, in the same order. That `nonzero` is the level loop's
 one host sync (about tree depth, 7-15 syncs per call). And a pair
 without a candidate folds I32MAX into its own ray instead of ray 0.
 
+The leaf test follows Config.tri_test (≙ JAX wavefront.py:122-131,
+191-200). "mt" gathers v0 / e1 / e2; the two others gather one 48-float
+row a leaf: the raw vertices padded to 48 ("watertight", which needs
+the shared endpoints bit for bit) or the four precompute_baldwin_weber
+rows of 12 ("baldwin").
+
 Opacity micromaps (omap, (L, 4, S, S) bool aligned with the leaf rows,
 ops.omap.leaf_align) drop a triangle hit whose barycentric cell
 (floor(u S), floor(v S)), clamped to the grid, is transparent (≙ JAX
@@ -36,7 +42,8 @@ from __future__ import annotations
 import torch
 
 from tinybvh_tpu_torch.core.intersect import (
-    check_tri_test, leaf_intersect, moller_trumbore, omap_cells, tri_edges,
+    check_tri_test, leaf_intersect, moller_trumbore, omap_cells,
+    precompute_baldwin_weber, tri_edges,
 )
 from tinybvh_tpu_torch.core.rays import Hits, Rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
@@ -116,6 +123,15 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
     tkey = tkey0.clone()
     win = torch.full((R,), _I32MAX, dtype=torch.int32, device=dev)
     v0t, e1t, e2t = tri_edges(bvh8.leaf_tris)                # (L, 4, 3)
+    L4 = bvh8.leaf_tris.shape[0]
+    bw_t = leaf_geom = None
+    if tri_test == "baldwin":
+        bw_t = precompute_baldwin_weber(
+            bvh8.leaf_tris.reshape(-1, 3, 3)).reshape(L4, 4, 12)
+        leaf_geom = bw_t.reshape(L4, 48)
+    elif tri_test == "watertight":
+        leaf_geom = torch.cat([bvh8.leaf_tris.reshape(L4, 36), torch.zeros(
+            (L4, 12), dtype=torch.float32, device=dev)], dim=1)
     # one fused per-pair ray gather: [o | d | rd]
     ray_data = torch.cat([o_all, d_all, rd_all], dim=1)      # (R, 9)
 
@@ -144,8 +160,17 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
 
         # leaf pairs: 4-wide Möller–Trumbore
         lrow = torch.where(is_leaf, -pc - 1, 0).long()
-        hit, th, uu, vv = moller_trumbore(o[:, None], d[:, None], v0t[lrow],
-                                          e1t[lrow], e2t[lrow], tb[:, None])
+        if tri_test == "mt":
+            hit, th, uu, vv = moller_trumbore(
+                o[:, None], d[:, None], v0t[lrow], e1t[lrow], e2t[lrow],
+                tb[:, None])
+        else:
+            geom = leaf_geom[lrow]                           # (n, 48)
+            tri4 = geom[:, 0:36].reshape(-1, 4, 3, 3)
+            hit, th, uu, vv = leaf_intersect(
+                tri_test, o[:, None], d[:, None], rd[:, None], tri4[:, :, 0],
+                tri4[:, :, 1], tri4[:, :, 2], tb[:, None],
+                bw_rows=geom.reshape(-1, 4, 12))
         if omap is not None:
             iu, iv = omap_cells(uu, vv, hit, omap.shape[-1])
             hit = hit & omap[lrow[:, None], lanes4, iu, iv]
@@ -190,7 +215,8 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
     wtri = bvh8.leaf_tris[wl, wk]                            # (R, 3, 3)
     _, _, uu, vv = leaf_intersect(
         tri_test, o_all, d_all, rd_all, wtri[:, 0], wtri[:, 1], wtri[:, 2],
-        torch.full((R,), BVH_FAR, dtype=torch.float32, device=dev))
+        torch.full((R,), BVH_FAR, dtype=torch.float32, device=dev),
+        bw_rows=None if bw_t is None else bw_t[wl, wk])
     hits = Hits(
         t=torch.where(ok, tkey.view(torch.float32), BVH_FAR),
         u=torch.where(ok, uu, 0.0),
