@@ -10,6 +10,7 @@
     python3 chip_smoke.py --probes     # phases 1-2 and 14, no JSON lines
     python3 chip_smoke.py --engines    # phases 1-2 and 17 (every path
                                        # profiled), no JSON lines
+    python3 chip_smoke.py --builders   # phases 1-2 and 18, no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -193,13 +194,34 @@ Phases (each prints one line; any failure raises and exits non-zero):
      kernel launches, copies, device time and the device's busy share of
      the wall time; no max_rounds raise, and no kernel of the
      package launched (the engines are plain torch);
+ 18. the builders and layouts: (a) build_lbvh and build_binned_device on
+     the card at random_tris(65536) and random_tris(1048576) (seed 0):
+     the first call, the median of 3 warm calls ending in a synchronize,
+     Mtris/s, host syncs (the sync debug mode) by source line, peak
+     device memory, SAH cost and one profiled call's launches and device
+     ms, the native host build of the same soup beside them, the
+     tree traced by the BVH2 engine against brute force on 2048 rays and
+     prim_idx a permutation; (b) BVH(random64k, builder="lbvh"), its
+     build split into the device build, host copies and uploads, the
+     Python collapse and the packet tables, intersect and is_occluded
+     on phase 4's rays through packet2 (kernels A and B, their launches
+     reset just before and read just after) with the wavefront retrace,
+     phase 4's gates, and the SAH API timed beside it; (c) the wavefront
+     at the h100 row's cap on random64k's BVH8Q against its BVH8: prims
+     equal on every ray, MRays/s, one profiled call's device ms,
+     node-table bytes and peak memory; (d) build_sweep, build_sbvh,
+     optimize_reinsertion, combine_leafs, split_leafs and epo_cost at
+     HOST_SIZES, host seconds, each tree traced on the card against
+     brute force; (e) save_bvh / load_bvh of a BVH2, BVH8, BVH8Q and
+     TLAS8, each loaded onto the card equal to what was saved;
 then a JSON line of the kernels (launches counted on each kernel's
 own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
 11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
 drives on that trace's inputs, since no path of the package runs them;
 A and B also carry tlas_launches, their launches in one phase 12
 bucketed call, render_launches, theirs in one phase 15 frame, and
-scene_launches, theirs in one phase 15b frame's trace; B's micromap
+scene_launches, theirs in one phase 15b frame's trace, and
+lbvh_launches, theirs in phase 18's builder="lbvh" API calls; B's micromap
 mode, mt_fused_omap, its launches in phase 16's main path, where A's
 are foliage_launches; H and I theirs
 in phase 14's drivers, with device_ms, graph_runs and, for I, whose
@@ -3158,16 +3180,19 @@ ENGINES_LEAF_TESTS = ("watertight", "baldwin")
 EDGE_QUADS = 64
 
 
-def host_syncs(fn):
-    """fn()'s output and the host syncs it made on the card: the
-    synchronizing CUDA calls torch.cuda's sync debug mode reports (0 off
-    the card). The warnings slow the call: never time it."""
+def sync_sites(fn):
+    """fn()'s output and the host syncs it made on the card, counted by
+    the source line that made each (file:line): the synchronizing CUDA
+    calls torch.cuda's sync debug mode reports (none off the card). The
+    warnings slow the call: never time it."""
+    import collections
+    import os
     import warnings
 
     import torch
 
     if not torch.cuda.is_available():
-        return fn(), 0
+        return fn(), collections.Counter()
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode(1)
@@ -3175,7 +3200,15 @@ def host_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in seen)
+    return out, collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message))
+
+
+def host_syncs(fn):
+    """fn()'s output and the number of host syncs it made (sync_sites)."""
+    out, sites = sync_sites(fn)
+    return out, sum(sites.values())
 
 
 def device_ops(fn, dev, wall_ms):
@@ -3511,6 +3544,321 @@ def phase_engines(bvh, tris, rays, center, extent, gpu_line,
           flush=True)
 
 
+BUILD_SIZES = (65536, 1048576)
+# phase 18(d)'s host builders: sizes that keep the phase near 90 s
+HOST_SIZES = dict(sweep=16384, sbvh=8192, optimize=16384, leafshape=16384,
+                  epo=4096)
+OPT = dict(passes=2, batch=16)
+
+
+def tree_gate(bvh2, tris_dev, rays, what):
+    """A BVH2 (on the card) traced by the BVH2 engine on ORACLE_RAYS of
+    `rays` against brute force: (prim agreement, checksum ratio)."""
+    from tinybvh_tpu_torch.traverse.stack import intersect_bvh2, pack_tris
+
+    idx = oracle_subset(rays.o.shape[0], rays.o.device)
+    sub = rays.take(idx)
+    h = intersect_bvh2(bvh2, pack_tris(bvh2, tris_dev), sub,
+                       leaf_max=max(int(bvh2.count.max()), 1))
+    return oracle_check(h, sub, tris_dev, what)
+
+
+def device_build_line(name, build, tris, dev, rays, gpu_line):
+    """Phase 18(a): one device builder on tris: its first call, the median
+    of 3 warm calls ending in a synchronize, Mtris/s, host syncs (the
+    sync debug mode) by source line, peak device memory and SAH cost,
+    one profiled call's launches, device ms and busy share; the native
+    host build of the same soup beside it; the tree traced like brute
+    force, its prim_idx a permutation."""
+    import torch
+    from tinybvh_tpu_torch import native
+    from tinybvh_tpu_torch.layouts.bvh2 import BVH2, sah_cost
+
+    n = tris.shape[0]
+    tris_dev = torch.from_numpy(tris).to(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    bvh = build(tris_dev)
+    sync(dev)
+    first = time.perf_counter() - t0
+    warm = wall_s(lambda: build(tris_dev), dev, warmed=True)
+    ops = device_ops(lambda: build(tris_dev), dev, warm * 1e3)
+    bvh, sites = sync_sites(lambda: build(tris_dev))
+    syncs = (f"{sum(sites.values())} ("
+             + ", ".join(f"{k} x{v}" for k, v in sorted(sites.items()))
+             + ")") if sites else "0"
+    bvh, mem = peak_gib(lambda: build(tris_dev), dev)
+    if not torch.equal(torch.sort(bvh.prim_idx).values,
+                       torch.arange(n, dtype=torch.int32, device=dev)):
+        raise AssertionError(f"{name} {n}: prim_idx is not a permutation")
+    agree, ratio = tree_gate(bvh, tris_dev, rays, f"{name} {n}")
+    t0 = time.perf_counter()
+    _, host = native.build_binned_native(tris, max_leaf=4, return_host=True)
+    native_s = time.perf_counter() - t0
+    native_sah = float(sah_cost(BVH2.from_host(host, "cpu")))
+    print(f"phase 18 build {name} {n} tris: first {first:.4f} s, warm "
+          f"{warm:.4f} s ({n / warm / 1e6:.3f} Mtris/s), host syncs "
+          f"{syncs}, peak device memory {mem:.3f} GiB, SAH "
+          f"{float(sah_cost(bvh)):.4f}, {bvh.n_nodes} nodes; native host "
+          f"build {native_s:.4f} s ({n / native_s / 1e6:.3f} Mtris/s) SAH "
+          f"{native_sah:.4f}; oracle prim-agree {agree:.5f} checksum "
+          f"{ratio:.6f}, prim_idx a permutation; one profiled call: {ops} "
+          f"[{gpu_line}]", flush=True)
+    del tris_dev, bvh
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lbvh_api_line(bvh, tris, rays, center, extent, gpu_line):
+    """Phase 18(b): BVH(tris, builder="lbvh") on the card, its build split
+    (device build, host copies and uploads, the Python collapse, the
+    packet tables), intersect and is_occluded through packet2 and the
+    wavefront retrace with the launches of kernels A and B counted
+    (reset just before, read just after), the oracle gates, and the SAH
+    API (phase 4's) timed beside it. Returns the launch counts."""
+    from tinybvh_tpu_torch import BVH
+    from tinybvh_tpu_torch.builders import lbvh
+    from tinybvh_tpu_torch.layouts import mbvh
+
+    dev = rays.o.device
+    R = rays.o.shape[0]
+    cutoff = 1.0 - 1e-3
+    spent = {"device build": 0.0, "collapse": 0.0}
+    real = {"build": lbvh.build_lbvh, "collapse": mbvh.collapse_bvh2}
+
+    def timed(what, fn):
+        def f(*a, **kw):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(dev)
+            spent[what] += time.perf_counter() - t0
+            return out
+        return f
+
+    lbvh.build_lbvh = timed("device build", real["build"])
+    mbvh.collapse_bvh2 = timed("collapse", real["collapse"])
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        b = BVH(tris, builder="lbvh", device=dev)
+        total = time.perf_counter() - t0
+    finally:
+        lbvh.build_lbvh, mbvh.collapse_bvh2 = real["build"], real["collapse"]
+    t0 = time.perf_counter()
+    b.packet_aux
+    sync(dev)
+    tables = time.perf_counter() - t0
+    copies = total - spent["device build"] - spent["collapse"]
+    if b.bvh8 is None or b._engine(rays, 1e30, "auto") != "packets":
+        raise AssertionError("lbvh API: not on the packet path")
+
+    reset_launches()
+    hits, occ, shadow, mem = api_calls(b, rays, center, extent, cutoff)
+    launches = read_launches(dev, ("cull", "mt_fused"), "the lbvh API path")
+    srays = shadow[2]
+    hit_rate, agree, ratio, occ_agree = api_gates(b, rays, hits, srays, occ,
+                                                  cutoff, "lbvh api")
+    prim_s = wall_s(lambda: b.intersect(rays), dev)
+    shadow_s = wall_s(lambda: b.is_occluded(srays, cutoff), dev)
+    sah_prim = wall_s(lambda: bvh.intersect(rays), dev)
+    sah_shadow = wall_s(lambda: bvh.is_occluded(srays, cutoff), dev)
+    print(f"phase 18 api builder=lbvh: {tris.shape[0]} tris, build "
+          f"{total:.3f} s (device build {spent['device build']:.4f} s, host "
+          f"copies and uploads {copies:.3f} s, Python collapse "
+          f"{spent['collapse']:.3f} s; packet tables {tables * 1e3:.3f} ms), "
+          f"{b.bvh8.n_nodes} BVH8 rows, {b.bvh8.n_leaves} leaves; {R} "
+          f"rays, hit rate {hit_rate:.4f}, primary {R / prim_s / 1e6:.3f} "
+          f"MRays/s, shadow {R / shadow_s / 1e6:.3f} MRays/s (the SAH API "
+          f"in this run: {R / sah_prim / 1e6:.3f} / "
+          f"{R / sah_shadow / 1e6:.3f}); peak device memory {mem[0]:.3f} / "
+          f"{mem[1]:.3f} GiB; oracle prim-agree {agree:.5f} checksum "
+          f"{ratio:.6f} shadow-agree {occ_agree:.5f}, residual overflow 0, "
+          f"launches {launches} [{gpu_line}]", flush=True)
+    return launches
+
+
+def bvh8q_line(bvh, rays, gpu_line):
+    """Phase 18(c): the wavefront at the h100 row's cap on random64k's
+    BVH8Q against its BVH8: prims equal on every ray; MRays/s, one
+    profiled call's device ms, node-table bytes and peak memory each."""
+    import torch
+    from tinybvh_tpu_torch.layouts.cwbvh import quantize_bvh8
+    from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    dev = rays.o.device
+    R = rays.o.shape[0]
+    cap = get_tuning(device=dev).wf_cap_factor
+    t0 = time.perf_counter()
+    q = quantize_bvh8(bvh.bvh8)
+    sync(dev)
+    quant_s = time.perf_counter() - t0
+    out, parts = {}, []
+    for name, tab, nbytes_ in (
+            ("BVH8", bvh.bvh8, nbytes([bvh.bvh8.bounds])),
+            ("BVH8Q", q, nbytes([q.origin, q.scale, q.qbounds]))):
+        (h, ovf), mem = peak_gib(lambda: intersect_wavefront(
+            tab, rays, cap_factor=cap), dev)
+        if ovf:
+            raise AssertionError(f"wavefront {name}: overflow at cap {cap}")
+        secs = wall_s(lambda: intersect_wavefront(tab, rays, cap_factor=cap),
+                      dev, warmed=True)
+        ops = device_ops(lambda: intersect_wavefront(tab, rays,
+                                                     cap_factor=cap),
+                         dev, secs * 1e3)
+        out[name] = h
+        parts.append(f"{name} {R / secs / 1e6:.3f} MRays/s, node bounds "
+                     f"{nbytes_} B, peak device memory {mem:.3f} GiB, {ops}")
+    if not torch.equal(out["BVH8"].prim, out["BVH8Q"].prim):
+        n_bad = int((out["BVH8"].prim != out["BVH8Q"].prim).sum())
+        raise AssertionError(f"BVH8Q wavefront: {n_bad} rays differ")
+    print(f"phase 18 wavefront cap {cap} on {R} camera rays: quantize "
+          f"{quant_s:.3f} s; " + "; ".join(parts) + "; prims equal on every "
+          f"ray, t equal {torch.equal(out['BVH8'].t, out['BVH8Q'].t)} "
+          f"[{gpu_line}]", flush=True)
+
+
+def host_builder_lines(dev, gpu_line):
+    """Phase 18(d): the host builders and transforms at HOST_SIZES, each
+    tree uploaded and traced on the card against brute force (64x64
+    camera rays over the soup, ORACLE_RAYS of them)."""
+    import torch
+    from tinybvh_tpu_torch import make_rays
+    from tinybvh_tpu_torch.builders.binned import build_binned
+    from tinybvh_tpu_torch.builders.optimize import (
+        epo_cost, optimize_reinsertion,
+    )
+    from tinybvh_tpu_torch.builders.sbvh import build_sbvh
+    from tinybvh_tpu_torch.builders.sweep import build_sweep
+    from tinybvh_tpu_torch.io.loaders import random_tris
+    from tinybvh_tpu_torch.layouts.bvh2 import sah_cost
+    from tinybvh_tpu_torch.layouts.leafshape import combine_leafs, split_leafs
+
+    soups, rays = {}, {}
+
+    def soup(n):
+        if n not in soups:
+            soups[n] = random_tris(n, seed=0)
+            o, d, _, _ = camera_rays(soups[n].reshape(-1, 3).min(0),
+                                     soups[n].reshape(-1, 3).max(0), 64, 64)
+            rays[n] = make_rays(o, d, device=dev)
+        return soups[n], torch.from_numpy(soups[n]).to(dev)
+
+    def run(what, n, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs = time.perf_counter() - t0
+        if not isinstance(out, float):
+            agree, ratio = tree_gate(out, soup(n)[1], rays[n], what)
+            out = (f"SAH {float(sah_cost(out)):.4f}, leaves up to "
+                   f"{int(out.count.max())}, oracle prim-agree {agree:.5f} "
+                   f"checksum {ratio:.6f}")
+        else:
+            out = f"EPO cost {out:.5f}"
+        return f"{what} {n} tris {secs:.3f} s ({out})"
+
+    parts = []
+    n = HOST_SIZES["sweep"]
+    parts.append(run("build_sweep", n, lambda: build_sweep(
+        soup(n)[0], device=dev)))
+    n = HOST_SIZES["sbvh"]
+    parts.append(run("build_sbvh", n, lambda: build_sbvh(
+        soup(n)[0], device=dev)))
+    n = HOST_SIZES["optimize"]
+    base = build_binned(soup(n)[0], device=dev)
+    parts.append(run(f"optimize_reinsertion ({OPT['passes']} passes of "
+                     f"{OPT['batch']}; input SAH "
+                     f"{float(sah_cost(base)):.4f})", n,
+                     lambda: optimize_reinsertion(base, **OPT)))
+    n = HOST_SIZES["leafshape"]
+    fine = build_binned(soup(n)[0], max_leaf=1, device=dev)
+    parts.append(run("combine_leafs(4) of a max_leaf=1 tree", n,
+                     lambda: combine_leafs(fine, 4)))
+    coarse = build_binned(soup(n)[0], max_leaf=None, c_trav=16.0, device=dev)
+    parts.append(run(f"split_leafs(4) of leaves up to "
+                     f"{int(coarse.count.max())}", n,
+                     lambda: split_leafs(coarse, 4)))
+    n = HOST_SIZES["epo"]
+    tree = build_binned(soup(n)[0], device=dev)
+    parts.append(run("epo_cost", n, lambda: epo_cost(tree, soup(n)[0])))
+    print("phase 18 host builders: " + "; ".join(parts) + f" [{gpu_line}]",
+          flush=True)
+
+
+def serialize_line(bvh, tris, gpu_line):
+    """Phase 18(e): save_bvh / load_bvh of random64k's BVH2, BVH8, BVH8Q
+    and inst8's TLAS8 (a temporary directory), each loaded onto the card
+    equal to what was saved."""
+    import os
+    import tempfile
+
+    import torch
+    from tinybvh_tpu_torch.io.serialize import load_bvh, save_bvh
+    from tinybvh_tpu_torch.layouts.cwbvh import quantize_bvh8
+    from tinybvh_tpu_torch.tlas.instance import build_tlas
+
+    dev = bvh.tris.device
+    ex = tris.reshape(-1, 3).max(0) - tris.reshape(-1, 3).min(0)
+    mats = np.stack([np.eye(4, dtype=np.float32)] * 8)
+    mats[:, :3, 3] = ex * 1.15 * np.array(
+        [[i, j, k] for i in range(2) for j in range(2) for k in range(2)],
+        np.float32)
+    objs = {"BVH2": bvh.bvh2, "BVH8": bvh.bvh8,
+            "BVH8Q": quantize_bvh8(bvh.bvh8),
+            "TLAS8": build_tlas([bvh.bvh8], mats, host8s=[bvh._bvh8_host],
+                                device=dev)}
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, obj in objs.items():
+            path = os.path.join(tmp, f"{name}.npz")
+            t0 = time.perf_counter()
+            save_bvh(path, obj)
+            t1 = time.perf_counter()
+            back = load_bvh(path, device=dev)
+            sync(dev)
+            t2 = time.perf_counter()
+            if type(back) is not type(obj):
+                raise AssertionError(f"{name}: loaded {type(back)}")
+            for k, v in vars(obj).items():
+                w = getattr(back, k)
+                same = (torch.equal(v, w) and w.device == v.device
+                        if isinstance(v, torch.Tensor) else v == w)
+                if not same:
+                    raise AssertionError(f"{name}.{k} differs after a load")
+            parts.append(f"{name} {os.path.getsize(path)} B save "
+                         f"{(t1 - t0) * 1e3:.1f} ms load "
+                         f"{(t2 - t1) * 1e3:.1f} ms")
+    print("phase 18 save / load round trips (equal on the card): "
+          + "; ".join(parts) + f" [{gpu_line}]", flush=True)
+
+
+def phase_builders(bvh, tris, rays, center, extent, gpu_line):
+    """Phase 18: the device builders (LBVH, binned SAH) on the card at
+    BUILD_SIZES, the API with builder="lbvh" (kernels A and B), the
+    wavefront on the quantized BVH8Q, the host builders and transforms,
+    and serialization. Returns the lbvh API path's launches of A and
+    B."""
+    from tinybvh_tpu_torch.builders.binned_device import build_binned_device
+    from tinybvh_tpu_torch.builders.lbvh import build_lbvh
+    from tinybvh_tpu_torch.io.loaders import random_tris
+
+    start = time.perf_counter()
+    dev = rays.o.device
+    for n in BUILD_SIZES:
+        soup = tris if n == tris.shape[0] else random_tris(n, seed=0)
+        for name, build in (("lbvh", build_lbvh),
+                            ("binned_device", build_binned_device)):
+            device_build_line(name, build, soup, dev, rays, gpu_line)
+    launches = lbvh_api_line(bvh, tris, rays, center, extent, gpu_line)
+    bvh8q_line(bvh, rays, gpu_line)
+    host_builder_lines(dev, gpu_line)
+    serialize_line(bvh, tris, gpu_line)
+    print(f"phase 18: {time.perf_counter() - start:.1f} s [{gpu_line}]",
+          flush=True)
+    return launches
+
+
 OCC6 = {"C": ("tbvh_mt_gathered_occupancy",),
         "G": ("tbvh_cull_blocks_occupancy",)}
 OCC11 = {"D-v2": ("tbvh_leaf_resolve_v2_occupancy", 0),
@@ -3537,6 +3885,7 @@ def main(argv=()):
     foliage_only = "--foliage" in argv
     probes_only = "--probes" in argv
     engines_only = "--engines" in argv
+    builders_only = "--builders" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3585,6 +3934,9 @@ def main(argv=()):
     if engines_only:
         phase_engines(bvh, tris, rays, scene[2], extent, gpu_line,
                       profile_every=True)
+        return 0
+    if builders_only:
+        phase_builders(bvh, tris, rays, scene[2], extent, gpu_line)
         return 0
     if resolves_only:
         # phases 6 and 11 alone, on the API cull's descriptors
@@ -3635,6 +3987,8 @@ def main(argv=()):
     kern.update(omap_kern)
     launches.update(mt_fused_omap=omap_launches["mt_fused_omap"])
     phase_engines(bvh, tris, rays, scene[2], extent, gpu_line)
+    lbvh_launches = phase_builders(bvh, tris, rays, scene[2], extent,
+                                   gpu_line)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3650,7 +4004,8 @@ def main(argv=()):
              ("tlas_launches", tlas_launches),
              ("render_launches", render_launches),
              ("scene_launches", scene_launches),
-             ("foliage_launches", omap_launches)) if name in table}}
+             ("foliage_launches", omap_launches),
+             ("lbvh_launches", lbvh_launches)) if name in table}}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,12 +128,13 @@ def _same_bvh_hits(pb, jb, o, d, what, **kw):
 @pytest.mark.parametrize("call", [
     "wavefront_watertight", "engine_rayloop", "small_batch_baldwin",
     "engine_lockstep2", "occluded_watertight", "builder_median",
-    "layout_bvh2", "bins_not_8"])
+    "layout_bvh2", "bins_not_8", "builder_lbvh"])
 def test_ported_paths_match_jax(scene, call):
     """The calls that raised NotImplementedError before the BVH2, rayloop
-    and leaf-test engines were ported: each against the JAX API on the
-    same call (prim equal, t within 1e-4, u and v within 1e-3, occlusion
-    equal), and against brute force."""
+    and leaf-test engines and the LBVH builder were ported: each against
+    the JAX API on the same call (prim equal, t within 1e-4, u and v
+    within 1e-3, occlusion equal), and against brute force. builder=
+    "lbvh" also builds JAX's BVH2 array for array."""
     from tinybvh_tpu.config import use_config as jax_config
 
     tris, pb, jb = scene
@@ -174,9 +175,16 @@ def test_ported_paths_match_jax(scene, call):
     else:
         kw = {"builder_median": dict(builder="median"),
               "layout_bvh2": dict(layout="bvh2"),
-              "bins_not_8": dict(bins=4)}[call]
+              "bins_not_8": dict(bins=4),
+              "builder_lbvh": dict(builder="lbvh")}[call]
         pb2 = tt.BVH(tris, device="cpu", **kw)
         jb2 = tb.BVH(tris, **kw)
+        if call == "builder_lbvh":
+            for k in ("node_min", "node_max", "left_first", "count",
+                      "prim_idx"):
+                np.testing.assert_array_equal(
+                    getattr(pb2.bvh2, k).numpy(),
+                    np.asarray(getattr(jb2.bvh2, k)), err_msg=k)
         assert pb2.leaf_max == jb2.leaf_max
         assert (pb2.bvh8 is None) == (jb2.bvh8 is None) == (
             call == "layout_bvh2")
@@ -186,15 +194,6 @@ def test_ported_paths_match_jax(scene, call):
         np.testing.assert_array_equal(pb2.packed_tris.numpy(),
                                       np.asarray(jb2.packed_tris))
         _same_bvh_hits(pb2, jb2, o, d, call)
-
-
-@pytest.mark.parametrize("call", ["builder_lbvh"])
-def test_unported_paths_raise(scene, call):
-    """What the API still lacks raises NotImplementedError naming the JAX
-    module that has it: the LBVH builder (ROADMAP queue 1 item 5)."""
-    tris, _, _ = scene
-    with pytest.raises(NotImplementedError, match="lbvh"):
-        tt.BVH(tris, builder="lbvh", device="cpu")
 
 
 def test_validate_rays_gate():

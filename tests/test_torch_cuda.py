@@ -2432,3 +2432,73 @@ def test_scene_update_refit_on_cuda_matches_cpu():
         for k in ("bounds", "child", "inst_inv", "inst_root"):
             assert torch.equal(getattr(g.tlas, k).cpu(),
                                getattr(c.tlas, k)), k
+
+
+@pytest.mark.parametrize("builder", ["lbvh", "binned_device"])
+def test_device_builders_on_cuda_match_cpu(builder):
+    """build_lbvh and build_binned_device on the card equal their CPU run
+    array for array (the same torch ops; min, max and integer scatters
+    do not depend on the order of the card's atomics), and the card's
+    tree traces like brute force."""
+    from tinybvh_tpu_torch.builders.binned_device import build_binned_device
+    from tinybvh_tpu_torch.builders.lbvh import build_lbvh
+    from tinybvh_tpu_torch.layouts.mbvh import collapse_bvh2
+    from tinybvh_tpu_torch.traverse.wide import intersect_bvh8
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    build = build_lbvh if builder == "lbvh" else build_binned_device
+    for n in (1, 2, 33, 3000, 65536):
+        if builder != "lbvh" and n == 1:
+            continue
+        tris = random_tris(n, seed=n + 3)
+        cpu = build(tris, device="cpu")
+        gpu = build(torch.from_numpy(tris).cuda())
+        assert gpu.node_min.device.type == "cuda"
+        assert gpu.n_nodes == cpu.n_nodes, n
+        for k in ("node_min", "node_max", "left_first", "count",
+                  "prim_idx"):
+            assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), (n, k)
+    o, d = _camera_rays(T=8)
+    rays = make_rays(o, d, device="cuda")
+    h = intersect_bvh8(collapse_bvh2(gpu, tris), rays)
+    ref = brute_force_closest(rays, torch.from_numpy(tris).cuda())
+    assert torch.equal(h.prim, ref.prim)
+
+
+def test_bvh8q_wavefront_on_cuda_matches_cpu(scene):
+    """The wavefront engine on a BVH8Q on the card: the same prims as
+    its CPU run, closest and any hit, and the same prims and t as the
+    float BVH8 on the card. Against the CPU's t, u and v ROADMAP's parity
+    standard (t within rtol = atol = 1e-4, u and v within 1e-3): the two
+    devices round the leaf test's products and sums each in their own
+    order, and a grazing hit's cancellation magnifies that past 1e-6."""
+    from tinybvh_tpu_torch.layouts.cwbvh import quantize_bvh8
+    from tinybvh_tpu_torch.layouts.mbvh import BVH8
+    from tinybvh_tpu_torch.traverse.wavefront import (
+        intersect_wavefront, is_occluded_wavefront,
+    )
+
+    _, bvh = scene
+    q = quantize_bvh8(bvh.bvh8)
+    q_cpu = quantize_bvh8(BVH8(**{k: getattr(bvh.bvh8, k).cpu() for k in (
+        "bounds", "child", "leaf_tris", "leaf_prim")}))
+    assert torch.equal(q.qbounds.cpu(), q_cpu.qbounds)
+    o, d = _camera_rays()
+    h, ovf = intersect_wavefront(q, make_rays(o, d, device="cuda"),
+                                 cap_factor=32)
+    hc, ovfc = intersect_wavefront(q_cpu, make_rays(o, d, device="cpu"),
+                                   cap_factor=32)
+    h8, _ = intersect_wavefront(bvh.bvh8, make_rays(o, d, device="cuda"),
+                                cap_factor=32)
+    assert not ovf and not ovfc
+    assert torch.equal(h.prim.cpu(), hc.prim)
+    assert torch.equal(h.prim, h8.prim) and torch.equal(h.t, h8.t)
+    for k, tol in (("t", 1e-4), ("u", 1e-3), ("v", 1e-3)):
+        np.testing.assert_allclose(getattr(h, k).cpu().numpy(),
+                                   getattr(hc, k).numpy(), rtol=tol,
+                                   atol=tol)
+    assert 0 < float((h.prim >= 0).float().mean()) < 1
+    occ = is_occluded_wavefront(q, make_rays(o, d, device="cuda"), 12.0)
+    occ_c = is_occluded_wavefront(q_cpu, make_rays(o, d, device="cpu"), 12.0)
+    assert torch.equal(occ.cpu(), occ_c)

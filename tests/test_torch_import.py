@@ -28,6 +28,14 @@ def test_import_loads_no_jax():
         "import tinybvh_tpu_torch.tlas.instance, tinybvh_tpu_torch.tlas.packet\n"
         "import tinybvh_tpu_torch.builders.binned\n"
         "import tinybvh_tpu_torch.builders.refit\n"
+        "import tinybvh_tpu_torch.builders.lbvh\n"
+        "import tinybvh_tpu_torch.builders.binned_device\n"
+        "import tinybvh_tpu_torch.builders.sweep\n"
+        "import tinybvh_tpu_torch.builders.sbvh\n"
+        "import tinybvh_tpu_torch.builders.optimize\n"
+        "import tinybvh_tpu_torch.layouts.cwbvh\n"
+        "import tinybvh_tpu_torch.layouts.leafshape\n"
+        "import tinybvh_tpu_torch.io.serialize\n"
         "import tinybvh_tpu_torch.layouts.bvh2\n"
         "import tinybvh_tpu_torch.traverse.stack\n"
         "import tinybvh_tpu_torch.traverse.rayloop\n"

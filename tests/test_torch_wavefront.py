@@ -6,8 +6,8 @@ with convert.from_numpy_bvh8) on the same numpy rays. Tolerances as
 ROADMAP's parity standard (tests/test_packet2.py:141-160): prim equal on
 every ray, t within rtol = atol = 1e-4, u and v within 1e-3; against brute
 force t within rtol 1e-4, atol 1e-5 as tests/test_wavefront.py. The
-quantized CWBVH case (test_quantized_cwbvh_matches) waits for ROADMAP
-queue 1 item 5.
+quantized CWBVH case (test_quantized_cwbvh_matches) is in
+tests/test_torch_layouts.py.
 """
 
 import numpy as np
@@ -175,12 +175,13 @@ def test_leaf_tests_match_jax(what):
 
 @pytest.mark.parametrize("what", ["omap", "bvh8q"])
 def test_unported_options_raise(what):
-    """The quantized layout the port lacks raises NotImplementedError; a
-    micromap table not aligned with the leaf rows raises ValueError."""
+    """A layout other than BVH8 and the quantized BVH8Q (which the engine
+    takes since it was ported) raises TypeError; a micromap table not
+    aligned with the leaf rows raises ValueError."""
     tris = random_tris(20, seed=1)
     _, b8 = _both(tris)
     rays = make_rays(*_rays(1, 8), device="cpu")
-    err = ValueError if what == "omap" else NotImplementedError
+    err = ValueError if what == "omap" else TypeError
     with pytest.raises(err):
         if what == "omap":
             intersect_wavefront(b8, rays, omap=torch.ones(

@@ -19,7 +19,12 @@ per-frame BVH update) and the path tracers (render/: `render`,
 `build_packet_aux(omap=)`, kernel B's micromap mode, the retraces and
 `build_tlas_packet(omaps=)`); the sphere and custom-primitive queries
 (ops/queries.py), the voxel DDA (ops/voxel.py) and voxel TLAS instances
-(tlas/voxel_blas.py). See ROADMAP.md for what is still to port."""
+(tlas/voxel_blas.py); the device builders (builders/lbvh.py, behind
+`BVH(builder="lbvh")`, and builders/binned_device.py), the host builders
+(builders/sweep.py, sbvh.py, optimize.py), the quantized BVH8Q
+(layouts/cwbvh.py, taken by the wavefront engine), the leaf-shape
+transforms (layouts/leafshape.py) and serialization (io/serialize.py).
+See ROADMAP.md for what is still to port."""
 
 from tinybvh_tpu_torch.api import BVH, TLAS
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays

@@ -3,9 +3,9 @@
 the TLAS build + IntersectTLAS, tiny_bvh.h:2221-2259, 3306-3380).
 
 Builders: the native SAH build ("sah" at 8 bins), the numpy one ("sah"
-at other bin counts, "median"). Layouts: the 8-wide BVH8 (leaves of at
-most 4 triangles) or, for layout != "bvh8" or larger leaves, the BVH2
-alone. Engines over the BVH8: the packet2 trace with the wavefront
+at other bin counts, "median"), the LBVH on the device ("lbvh").
+Layouts: the 8-wide BVH8 (leaves of at most 4 triangles) or, for layout
+!= "bvh8" or larger leaves, the BVH2 alone. Engines over the BVH8: the packet2 trace with the wavefront
 retrace (on a CUDA device it runs the hand-written kernels; on the CPU
 their plain twins), the wavefront, the per-ray-stack lockstep and the
 rayloop engine; over the BVH2: the lockstep BVH2 engine. `BVH.refit`
@@ -26,12 +26,6 @@ ENGINES = ("auto", "packets", "wavefront", "lockstep", "lockstep2",
            "rayloop")
 
 
-def _unsupported(what: str, jax_module: str):
-    """What the port lacks, named by the JAX module that has it."""
-    return NotImplementedError(f"{what} is not ported yet (JAX "
-                               f"{jax_module})")
-
-
 def _check_nans(what, *xs):
     """Config.debug_nans: raise FloatingPointError where a float tensor
     of xs holds a NaN."""
@@ -48,9 +42,11 @@ class BVH:
     device="cpu" asks for the kernels' plain versions).
 
     builder: "sah" (binned SAH; the native C build at 8 bins, the numpy
-    one otherwise) or "median" (≙ BuildQuick); layout: "bvh8" keeps the
-    8-wide layout where every leaf holds at most 4 triangles, any other
-    value (e.g. "bvh2") keeps the BVH2 alone (bvh8 is None)."""
+    one otherwise), "median" (≙ BuildQuick) or "lbvh" (the Morton radix
+    tree built on `device`, one prim a leaf, collapsed without leaf
+    combining, as in JAX); layout: "bvh8" keeps the 8-wide layout where
+    every leaf holds at most 4 triangles, any other value (e.g. "bvh2")
+    keeps the BVH2 alone (bvh8 is None)."""
 
     def __init__(self, tris, builder: str = "sah", max_leaf: int | None = None,
                  bins: int | None = None, layout: str = "bvh8", device=None):
@@ -62,10 +58,7 @@ class BVH:
         cfg = get_config()
         max_leaf = cfg.max_leaf if max_leaf is None else max_leaf
         bins = cfg.bins if bins is None else bins
-        if builder == "lbvh":
-            raise _unsupported("builder='lbvh' (ROADMAP queue 1 item 5)",
-                               "builders/lbvh.py")
-        if builder not in ("sah", "median"):
+        if builder not in ("sah", "median", "lbvh"):
             raise ValueError(f"unknown builder {builder!r}")
         self.device = default_device(device)
         if isinstance(tris, torch.Tensor):
@@ -82,6 +75,7 @@ class BVH:
                              f"got {tris_host.shape}")
         self.tris = torch.from_numpy(tris_host).to(self.device)
         self.device = self.tris.device      # "cuda" -> "cuda:0"
+        self._bvh2 = None
         # as JAX: the native C build where it serves (SAH at 8 bins), the
         # numpy builder otherwise (other bin counts, the median split, no
         # C compiler), whose tree takes the Python collapse
@@ -90,6 +84,17 @@ class BVH:
         if native_built:
             _, self._host = native.build_binned_native(
                 tris_host, max_leaf=max_leaf, return_host=True)
+        elif builder == "lbvh":
+            # the Morton radix tree, built on the BVH's device (≙ JAX
+            # api.py:80-83); then one host copy of each of its arrays for
+            # the leaf size, the triangle packing and the Python collapse
+            from tinybvh_tpu_torch.builders.lbvh import build_lbvh
+
+            self._bvh2 = build_lbvh(self.tris)
+            self._host = {k: getattr(self._bvh2, k).cpu().numpy()
+                          for k in ("node_min", "node_max", "left_first",
+                                    "count", "prim_idx")}
+            self._host["n_nodes"] = self._bvh2.n_nodes
         elif builder == "median":
             _, self._host = build_binned(tris_host, strategy="median",
                                          return_host=True, device="cpu")
@@ -112,7 +117,6 @@ class BVH:
             self.bvh8 = BVH8.from_host(self._bvh8_host, self.device)
         self._packet_aux = None
         self._rayloop_tables = None
-        self._bvh2 = None
         self._refit_plan = None
         self._aabb = (self._host["node_min"][0], self._host["node_max"][0])
 

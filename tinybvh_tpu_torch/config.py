@@ -15,7 +15,8 @@ UNREAD = {
     "hq_bins": "the builders take bins= (build_binned(bins=))",
     "c_trav": "the builders take c_trav= (default core/vecmath.py C_TRAV)",
     "c_int": "the builders take c_int= (default core/vecmath.py C_INT)",
-    "sbvh_slack": "the spatial-split builder is not ported",
+    "sbvh_slack": "the spatial-split builder takes slack= "
+                  "(builders/sbvh.py build_sbvh(slack=))",
     "stack_depth": "the engines fix their own depths (traverse/stack.py "
                    "STACK_DEPTH = 130, the rayloop engines' S, 24 and "
                    "two-level 32)",

@@ -5,7 +5,8 @@ the exact same tables.
 fields of the JAX `BVH8` and `PacketAux` (any array type numpy can read,
 e.g. jax arrays read back to the host) and returns the port's BVH8 and
 PacketAux on `device`; `from_numpy_bvh8` carries the BVH8 alone,
-`from_numpy_bvh2` a BVH2, `from_numpy_tlas8` a TLAS8,
+`from_numpy_bvh8q` a quantized BVH8Q, `from_numpy_bvh2` a BVH2,
+`from_numpy_tlas8` a TLAS8,
 `from_numpy_tlas_packet` a TLASPacket with its BLASes and packet tables,
 `from_numpy_omap` an opacity micromap table, `from_numpy_voxels` a
 frozen VoxelSet (a dict of arrays), and `from_numpy_rayloop_tables` /
@@ -23,6 +24,7 @@ import torch
 
 from tinybvh_tpu_torch.core.rays import default_device
 from tinybvh_tpu_torch.layouts.bvh2 import BVH2
+from tinybvh_tpu_torch.layouts.cwbvh import BVH8Q
 from tinybvh_tpu_torch.layouts.mbvh import BVH8
 from tinybvh_tpu_torch.tlas.instance import TLAS8
 from tinybvh_tpu_torch.tlas.packet import TLASPacket
@@ -38,6 +40,12 @@ def _t(a, device):
 def from_numpy_bvh8(bvh8_np, device=None) -> BVH8:
     return BVH8(**{k: _t(getattr(bvh8_np, k), device)
                    for k in ("bounds", "child", "leaf_tris", "leaf_prim")})
+
+
+def from_numpy_bvh8q(q_np, device=None) -> BVH8Q:
+    return BVH8Q(**{k: _t(getattr(q_np, k), device)
+                    for k in ("origin", "scale", "qbounds", "child",
+                              "leaf_tris", "leaf_prim")})
 
 
 def from_numpy_bvh2(bvh2_np, device=None) -> BVH2:

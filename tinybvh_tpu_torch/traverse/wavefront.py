@@ -47,6 +47,7 @@ from tinybvh_tpu_torch.core.intersect import (
 )
 from tinybvh_tpu_torch.core.rays import Hits, Rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
+from tinybvh_tpu_torch.layouts.cwbvh import BVH8Q, dequantize_bounds
 from tinybvh_tpu_torch.layouts.mbvh import BVH8, EMPTY_SLOT
 
 MAX_LEVELS = 64
@@ -91,18 +92,20 @@ def check_omap(bvh8, omap):
 
 
 def _check_inputs(bvh8, omap, tri_test):
-    if not isinstance(bvh8, BVH8):
-        raise NotImplementedError(
-            f"{type(bvh8).__name__}: only the f32 BVH8 layout is ported; "
-            "the quantized CWBVH (BVH8Q, JAX layouts/cwbvh.py) is not")
+    if not isinstance(bvh8, (BVH8, BVH8Q)):
+        raise TypeError(f"{type(bvh8).__name__}: the wavefront engine "
+                        "takes a BVH8 or a BVH8Q")
     check_omap(bvh8, omap)
     check_tri_test(tri_test)
 
 
-def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
+def intersect_wavefront(bvh8: BVH8 | BVH8Q, rays: Rays, t_max=BVH_FAR,
                         cap_factor: int = 3, any_hit: bool = False,
                         omap=None, tri_test: str | None = None):
-    """Closest-hit (or any-hit) wavefront traversal. t_max: scalar or
+    """Closest-hit (or any-hit) wavefront traversal over a BVH8 or its
+    quantized BVH8Q (each level's gathered node rows dequantized, ≙ JAX
+    wavefront.py:109-116; the bounds are conservative, so the hits are
+    the float BVH8's). t_max: scalar or
     (R,). Returns (Hits, overflow) or, with any_hit, (Hits, (R,) occluded,
     overflow); overflow (a bool) says pairs beyond cap_factor*R were
     dropped or the tree is deeper than MAX_LEVELS, so hits may be
@@ -154,7 +157,10 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
 
         # expand node pairs
         nrow = torch.where(is_node, pc, 0).long()
-        dist = _slab8(o, rd, tb, bvh8.bounds[nrow])          # (n, 8)
+        if isinstance(bvh8, BVH8Q):   # the gathered rows dequantized
+            dist = _slab8(o, rd, tb, dequantize_bounds(bvh8, nrow))
+        else:
+            dist = _slab8(o, rd, tb, bvh8.bounds[nrow])      # (n, 8)
         kids = bvh8.child[nrow]
         valid = (dist < BVH_FAR) & (kids != EMPTY_SLOT) & is_node[:, None]
 
@@ -229,8 +235,9 @@ def intersect_wavefront(bvh8: BVH8, rays: Rays, t_max=BVH_FAR,
     return hits, overflow
 
 
-def is_occluded_wavefront(bvh8: BVH8, rays: Rays, t_max, omap=None):
-    """(R,) bool: any hit in (0, t_max)."""
+def is_occluded_wavefront(bvh8: BVH8 | BVH8Q, rays: Rays, t_max,
+                          omap=None):
+    """(R,) bool: any hit in (0, t_max), over a BVH8 or a BVH8Q."""
     _, occ, _ = intersect_wavefront(bvh8, rays, t_max, any_hit=True,
                                     omap=omap)
     return occ
