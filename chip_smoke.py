@@ -11,6 +11,8 @@
     python3 chip_smoke.py --engines    # phases 1-2 and 17 (every path
                                        # profiled), no JSON lines
     python3 chip_smoke.py --builders   # phases 1-2 and 18, no JSON lines
+    python3 chip_smoke.py --mesh       # phases 1-2 and 19, no JSON lines
+    python3 chip_smoke.py --f64        # phases 1-2 and 20, no JSON lines
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
@@ -214,14 +216,45 @@ Phases (each prints one line; any failure raises and exits non-zero):
      HOST_SIZES, host seconds, each tree traced on the card against
      brute force; (e) save_bvh / load_bvh of a BVH2, BVH8, BVH8Q and
      TLAS8, each loaded onto the card equal to what was saved;
+ 19. the multi-device layer (parallel/mesh.py) at random64k's 640x640
+     camera rays and the h100 row's budgets: (a) a one-rank NCCL process
+     group, mesh 1 x 1: trace_packets_dp torch.equal to
+     intersect_packets2 on the same rays (prim, t, u, v), its launches
+     of A and B reset just before and read just after;
+     trace_packets_sharded over one shard, trace_sharded (the BVH2
+     engine) and render_step_dp (its image against the same terms over
+     brute-force hits and shadows, 0.999 of 2048 pixels within 1e-4),
+     each traced call gated by the oracle (prim agreement >= 0.999,
+     checksum within 1%), with its wall time (median of 2 after the
+     first), peak device memory and the collectives' count and time;
+     (b) two gloo ranks sharing the card, spawned by parallel/launch.py
+     run_local: mesh 1 x 2 (random64k in two scene shards) through
+     trace_packets_sharded and trace_sharded under the same gates, and
+     mesh 2 x 1 through trace_packets_dp, torch.equal to (a)'s; each
+     rank prints its walls, collectives and peak memory, and a failed
+     rank fails the smoke;
+ 20. the double-precision path (ops/f64.py): random64k in float64
+     shifted by 1e9 on every axis (f32 rounds to 64-unit steps there):
+     BVHDouble's host build timed, then intersect and is_occluded
+     (shadow segments to a light above, cutoff 0.999) on the card with
+     640x640 camera rays at the offset, gated by an f64 brute force on
+     the card over 2048 rays (written here: prims equal on every ray, t
+     within 1e-12 relative; shadow agreement >= 0.999), with the f32
+     closest hit's prim agreement on the same shifted scene beside them
+     (not a gate); TLASDouble over inst8's 2 x 2 x 2 grid of that BLAS
+     at the offset with 512x512 rays against the brute force over the
+     world-space triangles (prim and inst agreement >= 0.999, t within
+     1e-6); each query's MRays/s, steps, compactions, host syncs, peak
+     memory and one profiled call;
 then a JSON line of the kernels (launches counted on each kernel's
 own path: A and B in phase 4, G in phase 7, C in phase 8, D-v2 in phase
 11's kernel-D trace, F in its F + D trace, D-v3 and E in their own
 drives on that trace's inputs, since no path of the package runs them;
 A and B also carry tlas_launches, their launches in one phase 12
 bucketed call, render_launches, theirs in one phase 15 frame, and
-scene_launches, theirs in one phase 15b frame's trace, and
-lbvh_launches, theirs in phase 18's builder="lbvh" API calls; B's micromap
+scene_launches, theirs in one phase 15b frame's trace,
+lbvh_launches, theirs in phase 18's builder="lbvh" API calls, and
+mesh_launches, theirs in phase 19a's trace_packets_dp call; B's micromap
 mode, mt_fused_omap, its launches in phase 16's main path, where A's
 are foliage_launches; H and I theirs
 in phase 14's drivers, with device_ms, graph_runs and, for I, whose
@@ -236,6 +269,7 @@ cores (only the probes' bf16 products do). Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3859,6 +3893,443 @@ def phase_builders(bvh, tris, rays, center, extent, gpu_line):
     return launches
 
 
+MESH_LIGHT = (0.3, 0.8, 0.5)
+MESH_TIMEOUT_S = 300.0    # the process groups' and 19b's ranks' limit
+MESH_BACKEND = "nccl"     # 19a's one-rank group (19b's two share a card:
+                          # gloo, since NCCL takes one rank a card)
+
+
+def render_oracle(tris, packed, rays, light, shadow_any):
+    """render_step_dp's image from brute-force hits and shadows: the same
+    Lambert and shadow terms (the normal of packed[prim], as the port and
+    JAX take it) over the oracle's prims."""
+    import torch
+    from tinybvh_tpu_torch.core.intersect import (
+        brute_force_any, brute_force_closest,
+    )
+    from tinybvh_tpu_torch.core.rays import make_rays
+
+    ref = brute_force_closest(rays, tris)
+    tri = packed[torch.clamp(ref.prim, min=0).long()]
+    e1, e2 = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], -1)
+    n = n / torch.clamp(torch.sqrt((n * n).sum(-1, keepdim=True)), min=1e-20)
+    lt = torch.as_tensor(light, dtype=torch.float32, device=tris.device)
+    ndl = (n[:, 0] * lt[0] + n[:, 1] * lt[1] + n[:, 2] * lt[2]).abs()
+    p = rays.o + ref.t[:, None] * rays.d
+    occ = shadow_any(make_rays(p + n * 1e-3, lt.expand_as(p)))
+    return torch.where(ref.prim >= 0, ndl * torch.where(occ, 0.2, 1.0), 0.05)
+
+
+def mesh_gate(hits, rays, tris, what):
+    """The smoke's oracle gates on ORACLE_RAYS rays; returns their text."""
+    idx = oracle_subset(rays.o.shape[0], rays.o.device)
+    agree, ratio = oracle_check(hits.take(idx), rays.take(idx), tris, what)
+    return f"prim-agree {agree:.5f} checksum {ratio:.6f}"
+
+
+def image_gate_render(img, tris, packed, rays, what):
+    """render_step_dp's image against render_oracle on ORACLE_RAYS rays:
+    0.999 of the pixels within 1e-4."""
+    from tinybvh_tpu_torch.core.intersect import brute_force_any
+
+    idx = oracle_subset(rays.o.shape[0], rays.o.device)
+    ref = render_oracle(tris, packed, rays.take(idx), MESH_LIGHT,
+                        lambda r: brute_force_any(r, tris, 1e4))
+    got = img[idx, 0]
+    frac = float(((got - ref).abs() <= 1e-4).float().mean())
+    if frac < 0.999 or not bool((img[:, 0] == img[:, 1]).all()):
+        raise AssertionError(f"{what}: {frac} of the oracle's pixels within "
+                             "1e-4")
+    return f"pixels within 1e-4 of the oracle {frac:.5f}"
+
+
+def timed(fn, dev):
+    """fn()'s output, its first call's peak device memory (GiB) and the
+    median wall seconds of 2 more calls."""
+    out, mem = peak_gib(fn, dev)
+    return out, mem, wall_s(fn, dev, reps=2, warmed=True)
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Times the mesh layer's collectives from outside while open: swaps
+    parallel/mesh.py's _all_gather for one that syncs the card before
+    and after each collective and adds its host milliseconds (a gloo
+    group's host copies included) to the returned dict's "ms". The layer
+    itself does not sync."""
+    from tinybvh_tpu_torch.parallel import mesh as pm
+
+    inner = pm._all_gather
+    clock = {"ms": 0.0}
+
+    def timed_gather(mesh, group, x):
+        sync(x.device)
+        t0 = time.perf_counter()
+        out = inner(mesh, group, x)
+        sync(out.device)
+        clock["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    pm._all_gather = timed_gather
+    try:
+        yield clock
+    finally:
+        pm._all_gather = inner
+
+
+def mesh_calls(mesh, bvh, tris, rays, dev, n_scene):
+    """Phase 19's calls on one mesh rank: the sharded BVH2 and packet2
+    traces over n_scene shards of random64k (and with one shard, the
+    render step), each gated by the oracle; returns the text."""
+    from tinybvh_tpu_torch.parallel import mesh as pm
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    tun = get_tuning(device=dev)
+    kw = dict(max_leaves=tun.max_leaves, max_blocks=tun.max_blocks,
+              wf_cap_factor=tun.wf_cap_factor)
+    R = rays.o.shape[0]
+    text = []
+    t0 = time.perf_counter()
+    b8s, auxes, gids8 = pm.shard_scene_packets(tris, n_scene, device=dev)
+    bvhs, packed, gids = pm.shard_scene(tris, n_scene, device=dev)
+    sync(dev)
+    text.append(f"shard builds {time.perf_counter() - t0:.2f} s")
+    mesh.stats.update(collectives=0)
+    with collective_clock() as clock:
+        h, mem, secs = timed(lambda: pm.trace_packets_sharded(
+            mesh, b8s, auxes, gids8, rays, **kw), dev)
+        text.append(f"trace_packets_sharded {secs * 1e3:.1f} ms "
+                    f"({R / secs / 1e6:.3f} MRays/s, peak {mem:.3f} GiB; "
+                    f"{mesh_gate(h, rays, bvh.tris, 'trace_packets_sharded')})")
+        h, mem, secs = timed(lambda: pm.trace_sharded(
+            mesh, bvhs, packed, gids, rays), dev)
+        text.append(f"trace_sharded {secs * 1e3:.1f} ms "
+                    f"({R / secs / 1e6:.3f} MRays/s, peak {mem:.3f} GiB; "
+                    f"{mesh_gate(h, rays, bvh.tris, 'trace_sharded')})")
+        if n_scene == 1:
+            bvh2 = pm._shard(bvhs, 0, dev)
+            img, mem, secs = timed(lambda: pm.render_step_dp(
+                mesh, bvh2, packed[0], rays, MESH_LIGHT), dev)
+            gate = image_gate_render(img, bvh.tris, packed[0], rays,
+                                     "render_step_dp")
+            text.append(f"render_step_dp {secs * 1e3:.1f} ms (peak "
+                        f"{mem:.3f} GiB; {gate})")
+    text.append(f"collectives {mesh.stats['collectives']} in "
+                f"{clock['ms']:.1f} ms")
+    return "; ".join(text)
+
+
+def phase_mesh(bvh, tris, rays, gpu_line):
+    """Phase 19a: a one-rank NCCL process group, mesh 1 x 1:
+    trace_packets_dp equal to intersect_packets2 on the same rays, its
+    launches of A and B, then the sharded traces and the render step
+    gated by the oracle. Returns the launches and the dp hits on the
+    host."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from tinybvh_tpu_torch.parallel import mesh as pm
+    from tinybvh_tpu_torch.traverse.packet2 import intersect_packets2
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    dev = rays.o.device
+    tun = get_tuning(device=dev)
+    kw = dict(max_leaves=tun.max_leaves, max_blocks=tun.max_blocks,
+              wf_cap_factor=tun.wf_cap_factor)
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            MESH_BACKEND, store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1, timeout=timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            mesh = pm.make_mesh(1, 1, device=dev)
+            reset_launches()
+            h, mem = peak_gib(lambda: pm.trace_packets_dp(
+                mesh, bvh.bvh8, bvh.packet_aux, rays, **kw), dev)
+            launches = read_launches(dev, ("cull", "mt_fused"),
+                                     "phase 19a trace_packets_dp")
+            ref, _ = intersect_packets2(bvh.bvh8, bvh.packet_aux, rays,
+                                        retrace=True, **kw)
+            for k in ("prim", "t", "u", "v"):
+                if not torch.equal(getattr(h, k), getattr(ref, k)):
+                    raise AssertionError(f"phase 19a: trace_packets_dp's {k}"
+                                         " differs from intersect_packets2's")
+            secs = wall_s(lambda: pm.trace_packets_dp(
+                mesh, bvh.bvh8, bvh.packet_aux, rays, **kw), dev,
+                reps=2, warmed=True)
+            R = rays.o.shape[0]
+            print(f"phase 19a mesh 1x1 ({MESH_BACKEND}): trace_packets_dp {R} rays {secs * 1e3:.1f} ms "
+                  f"({R / secs / 1e6:.3f} MRays/s, peak {mem:.3f} GiB), equal"
+                  f" to intersect_packets2 (prim, t, u, v), "
+                  f"{mesh_gate(h, rays, bvh.tris, 'trace_packets_dp')}, "
+                  f"launches {launches}; "
+                  f"{mesh_calls(mesh, bvh, tris, rays, dev, 1)}; "
+                  f"{time.perf_counter() - start:.1f} s [{gpu_line}]",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+    return launches, {k: getattr(h, k).cpu() for k in ("prim", "t", "u", "v")}
+
+
+def mesh_rank(n_tris, W, device):
+    """Phase 19b on one of two gloo ranks sharing the card: phase 4's
+    scene (random_tris(n_tris)) and W x W camera rays, then mesh 1 x 2 (two
+    scene shards) and mesh 2 x 1 (trace_packets_dp over two ray blocks).
+    Prints its line; rank 0 returns its trace_packets_dp hits. device:
+    the card's (both ranks share it)."""
+    import torch
+    import torch.distributed as dist
+    from tinybvh_tpu_torch.io.loaders import random_tris
+    from tinybvh_tpu_torch.parallel import mesh as pm
+    from tinybvh_tpu_torch.tuning import get_tuning
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = torch.device(device)
+    start = time.perf_counter()
+    tris = random_tris(n_tris, seed=0)
+    bvh, rays, _, _, _ = setup_scene(tris, dev, W)
+    tun = get_tuning(device=dev)
+    kw = dict(max_leaves=tun.max_leaves, max_blocks=tun.max_blocks,
+              wf_cap_factor=tun.wf_cap_factor)
+    m12 = pm.make_mesh(1, 2, device=dev)
+    m21 = pm.make_mesh(2, 1, device=dev)
+    text = mesh_calls(m12, bvh, tris, rays, dev, 2)
+    m21.stats.update(collectives=0)
+    with collective_clock() as clock:
+        h, mem, secs = timed(lambda: pm.trace_packets_dp(
+            m21, bvh.bvh8, bvh.packet_aux, rays, **kw), dev)
+    R = rays.o.shape[0]
+    print(f"phase 19b rank {rank} of 2 (gloo, one card): mesh 1x2: {text}; "
+          f"mesh 2x1: trace_packets_dp {secs * 1e3:.1f} ms "
+          f"({R / secs / 1e6:.3f} MRays/s, peak {mem:.3f} GiB), "
+          f"collectives {m21.stats['collectives']} in "
+          f"{clock['ms']:.1f} ms; "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return {k: getattr(h, k) for k in ("prim", "t", "u", "v")}
+
+
+def phase_mesh_ranks(dp_hits, tris, dev, W, gpu_line):
+    """Phase 19b: two gloo ranks on the one card (NCCL takes one rank a
+    card), spawned by run_local; rank 0's trace_packets_dp must equal
+    phase 19a's single-rank result. A failed rank raises."""
+    import torch
+    from tinybvh_tpu_torch.parallel.launch import run_local
+
+    t0 = time.perf_counter()
+    got = run_local(2, mesh_rank, tris.shape[0], W, str(dev), backend="gloo",
+                    timeout_s=MESH_TIMEOUT_S)
+    for k in ("prim", "t", "u", "v"):
+        if not torch.equal(got[k], dp_hits[k]):
+            raise AssertionError(f"phase 19b: the 2x1 trace_packets_dp's {k}"
+                                 " differs from phase 19a's")
+    print(f"phase 19b: 2 ranks in {time.perf_counter() - t0:.1f} s, mesh "
+          f"2x1 trace_packets_dp equal to phase 19a's (prim, t, u, v) "
+          f"[{gpu_line}]", flush=True)
+
+
+F64_OFFSET = 1e9       # f32 rounds to 64 m steps there
+F64_TLAS_W = 512
+
+
+def brute_f64(o, d, tris, t_max=1e300, any_hit=False, chunk=2048):
+    """O(R*N) in float64 with the reference's double test (|det| < 1e-12
+    rejected, 1e-12 < t < t_max), chunked over triangles: (t, prim) of
+    the least t (the first triangle on a tie), or with any_hit (R,)
+    bool."""
+    import torch
+
+    R = o.shape[0]
+    best = torch.full((R,), t_max, dtype=torch.float64, device=o.device)
+    prim = torch.full((R,), -1, dtype=torch.int64, device=o.device)
+    occ = torch.zeros(R, dtype=torch.bool, device=o.device)
+
+    def dot(a, b):
+        return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+    def cross(a, b):
+        return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                           -1)
+
+    oo, dd = o[:, None], d[:, None]
+    for base in range(0, tris.shape[0], chunk):
+        tc = tris[base:base + chunk]
+        v0 = tc[None, :, 0]
+        e1, e2 = tc[None, :, 1] - v0, tc[None, :, 2] - v0
+        h = cross(dd, e2)
+        det = dot(e1, h)
+        inv = 1.0 / det
+        sv = oo - v0
+        uu = dot(sv, h) * inv
+        q = cross(sv, e1)
+        vv = dot(dd, q) * inv
+        tt = dot(e2, q) * inv
+        ok = (~(det.abs() < 1e-12) & ~((uu < 0) | (uu > 1))
+              & ~((vv < 0) | (uu + vv > 1)) & (tt > 1e-12)
+              & (tt < best[:, None]))
+        if any_hit:
+            occ |= ok.any(dim=1)
+            continue
+        bt, bi = torch.where(ok, tt, torch.inf).min(dim=1)
+        better = bt < best
+        best = torch.where(better, bt, best)
+        prim = torch.where(better, bi + base, prim)
+    return occ if any_hit else (best, prim)
+
+
+def f64_gates(res, o, d, tris, what, t_rel=None, t_abs=None,
+              n_per_inst=None):
+    """res (a BVHDouble / TLASDouble result) against brute_f64 on
+    ORACLE_RAYS rays: with t_rel, prims equal on every ray and t within
+    t_rel relative; with t_abs (a TLAS over world-space triangles, whose
+    ids are inst * n_per_inst + prim), prim and inst agreement >= 0.999
+    and t within t_abs where both agree. Returns the text."""
+    import torch
+
+    idx = oracle_subset(o.shape[0], o.device)
+    bt, bp = brute_f64(o[idx], d[idx], tris)
+    t, prim = res["t"][idx], res["prim"][idx]
+    if t_rel is not None:
+        same = bool(torch.equal(prim, bp))
+        hit = bp >= 0
+        rel = float(((t - bt).abs() / bt.abs())[hit].max()) if bool(
+            hit.any()) else 0.0
+        if not same or rel > t_rel:
+            raise AssertionError(f"{what}: prims equal {same}, t max rel "
+                                 f"{rel}")
+        return (f"prims equal on {idx.numel()} rays, t max rel {rel:.3e}, "
+                f"hit rate {float(hit.float().mean()):.4f}")
+    inst = torch.where(bp >= 0, bp // n_per_inst, -1)
+    pr = torch.where(bp >= 0, bp % n_per_inst, -1)
+    pa = float((prim == pr).float().mean())
+    ia = float((res["inst"][idx] == inst).float().mean())
+    both = (prim == pr) & (bp >= 0)
+    dt = float((t - bt).abs()[both].max()) if bool(both.any()) else 0.0
+    if pa < 0.999 or ia < 0.999 or dt > t_abs:
+        raise AssertionError(f"{what}: prim-agree {pa} inst-agree {ia} t max "
+                             f"abs {dt}")
+    return (f"prim-agree {pa:.5f} inst-agree {ia:.5f} t max abs {dt:.3e}, "
+            f"hit rate {float((bp >= 0).float().mean()):.4f}")
+
+
+def f64_run(obj, fn, dev, profiled=False):
+    """fn()'s output, with its first call's peak memory and host syncs
+    (the engine's count and torch.cuda's sync debug mode's), the wall of
+    one more call and, with profiled, one call under the profiler;
+    returns (out, secs, text)."""
+    out, mem = peak_gib(lambda: host_syncs(fn), dev)
+    out, syncs = out
+    stats = dict(obj.last_call)
+    secs = wall_s(fn, dev, reps=1, warmed=True)
+    ops = f"; {device_ops(fn, dev, secs * 1e3)}" if profiled else ""
+    return out, secs, (f"steps {stats['steps']}, compactions "
+                       f"{stats['compactions']}, host syncs {stats['syncs']}"
+                       f" (debug mode {syncs}), peak {mem:.3f} GiB{ops}")
+
+
+def phase_f64(tris32, dev, gpu_line, W=640):
+    """Phase 20: BVHDouble of random64k in f64 shifted by F64_OFFSET on
+    every axis (the host build timed), intersect and is_occluded on the
+    card with W x W camera rays at the offset, gated by brute_f64; the
+    f32 answer on the same shifted scene beside it; then TLASDouble of
+    inst8's 2 x 2 x 2 grid of that BLAS at F64_TLAS_W^2 rays."""
+    import torch
+    from tinybvh_tpu_torch.core.intersect import brute_force_closest
+    from tinybvh_tpu_torch.core.rays import make_rays
+    from tinybvh_tpu_torch.ops.f64 import BLASInstanceEx, BVHDouble, TLASDouble
+
+    start = time.perf_counter()
+    off = F64_OFFSET
+    tris = tris32.astype(np.float64) + off
+    t0 = time.perf_counter()
+    b = BVHDouble(tris, device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    lo = tris32.reshape(-1, 3).min(0)
+    hi = tris32.reshape(-1, 3).max(0)
+    o, d, center, extent = camera_rays(lo, hi, W, W)
+    o = torch.as_tensor(o, dtype=torch.float64, device=dev) + off
+    d = torch.as_tensor(d, dtype=torch.float64, device=dev)
+    tris_dev = torch.as_tensor(tris, device=dev)
+    R = o.shape[0]
+    res, secs, text = f64_run(b, lambda: b.intersect(o, d), dev,
+                              profiled=True)
+    t0 = time.perf_counter()
+    gate = f64_gates(res, o, d, tris_dev, "phase 20 BVHDouble.intersect",
+                     t_rel=1e-12)
+    gates_s = time.perf_counter() - t0
+    # shadow segments from a light above to the hit points (misses: the
+    # far image plane), cutoff 0.999 as in phase 4
+    ht = torch.where(res["prim"] >= 0, res["t"], torch.ones_like(res["t"]))
+    pts = o + ht[:, None] * d
+    light = torch.as_tensor(center + np.array([0, 2.0, 0]) * extent,
+                            device=dev) + off
+    sd = pts - light
+    so = light.expand_as(pts)
+    occ, ssecs, stext = f64_run(b, lambda: b.is_occluded(so, sd, 0.999), dev)
+    t0 = time.perf_counter()
+    idx = oracle_subset(R, dev)
+    occ_ref = brute_f64(so[idx], sd[idx], tris_dev, 0.999, any_hit=True)
+    occ_agree = float((occ[idx] == occ_ref).float().mean())
+    gates_s += time.perf_counter() - t0
+    if occ_agree < 0.999:
+        raise AssertionError(f"phase 20 BVHDouble.is_occluded: agreement "
+                             f"{occ_agree}")
+    # the f32 answer: the shifted scene and rays rounded to f32 (every
+    # vertex rounds to one point), the exact f32 closest hit over it
+    r32 = make_rays(o[idx].float(), d[idx].float(), device=dev)
+    h32 = brute_force_closest(r32, tris_dev.float())
+    f32_agree = float((h32.prim.long() == res["prim"][idx]).float().mean())
+    print(f"phase 20 f64 BVHDouble: {tris.shape[0]} tris at +{off:.0e}, host"
+          f" build {build_s:.2f} s (depth {b.depth}); intersect {R} rays "
+          f"{secs * 1e3:.1f} ms ({R / secs / 1e6:.3f} MRays/s; {text}), "
+          f"{gate}; is_occluded {ssecs * 1e3:.1f} ms "
+          f"({R / ssecs / 1e6:.3f} MRays/s, occluded "
+          f"{float(occ.float().mean()):.4f}; {stext}), oracle agreement "
+          f"{occ_agree:.5f}; f32 prim agreement on the same shifted scene "
+          f"{f32_agree:.4f} (brute force in f32, not a gate); oracles "
+          f"{gates_s:.1f} s [{gpu_line}]", flush=True)
+
+    ex = hi - lo
+    insts, mats = [], []
+    for i in range(2):
+        for j in range(2):
+            for k in range(2):
+                m = np.eye(4)
+                m[:3, 3] = ex.astype(np.float64) * 1.15 * np.array([i, j, k])
+                mats.append(m)
+                insts.append(BLASInstanceEx(0, m))
+    t0 = time.perf_counter()
+    tl = TLASDouble(insts, [b], device=dev)
+    sync(dev)
+    tlas_s = time.perf_counter() - t0
+    whi = lo + ex * np.array([1.15 + 1, 1.15 + 1, 1.15 + 1])
+    o2, d2, _, _ = camera_rays(lo, whi, F64_TLAS_W, F64_TLAS_W)
+    o2 = torch.as_tensor(o2, dtype=torch.float64, device=dev) + off
+    d2 = torch.as_tensor(d2, dtype=torch.float64, device=dev)
+    res2, secs2, text2 = f64_run(tl, lambda: tl.intersect(o2, d2), dev)
+    world = torch.cat([tris_dev + torch.as_tensor(m[:3, 3], device=dev)
+                       for m in mats])
+    t0 = time.perf_counter()
+    gate2 = f64_gates(res2, o2, d2, world, "phase 20 TLASDouble.intersect",
+                      t_abs=1e-6, n_per_inst=tris.shape[0])
+    gates_s = time.perf_counter() - t0
+    R2 = o2.shape[0]
+    print(f"phase 20 f64 TLASDouble: inst8 (8 instances of the BLAS) at "
+          f"+{off:.0e}, TLAS build {tlas_s:.3f} s; intersect {R2} rays "
+          f"{secs2 * 1e3:.1f} ms ({R2 / secs2 / 1e6:.3f} MRays/s; {text2}), "
+          f"{gate2} (oracle {gates_s:.1f} s); phase 20 "
+          f"{time.perf_counter() - start:.1f} s [{gpu_line}]", flush=True)
+
+
 OCC6 = {"C": ("tbvh_mt_gathered_occupancy",),
         "G": ("tbvh_cull_blocks_occupancy",)}
 OCC11 = {"D-v2": ("tbvh_leaf_resolve_v2_occupancy", 0),
@@ -3886,6 +4357,8 @@ def main(argv=()):
     probes_only = "--probes" in argv
     engines_only = "--engines" in argv
     builders_only = "--builders" in argv
+    mesh_only = "--mesh" in argv
+    f64_only = "--f64" in argv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3919,6 +4392,9 @@ def main(argv=()):
           f"{t_n:.2f} s (cc)", flush=True)
 
     tris = random_tris(65536, seed=0)
+    if f64_only:
+        phase_f64(tris, dev, gpu_line)
+        return 0
     if render_only:
         phase_render(tris, dev, gpu_line)
         phase_scene16(tris, dev, gpu_line)
@@ -3937,6 +4413,10 @@ def main(argv=()):
         return 0
     if builders_only:
         phase_builders(bvh, tris, rays, scene[2], extent, gpu_line)
+        return 0
+    if mesh_only:
+        _, dp_hits = phase_mesh(bvh, tris, rays, gpu_line)
+        phase_mesh_ranks(dp_hits, tris, dev, 640, gpu_line)
         return 0
     if resolves_only:
         # phases 6 and 11 alone, on the API cull's descriptors
@@ -3989,6 +4469,14 @@ def main(argv=()):
     phase_engines(bvh, tris, rays, scene[2], extent, gpu_line)
     lbvh_launches = phase_builders(bvh, tris, rays, scene[2], extent,
                                    gpu_line)
+    t0 = time.perf_counter()
+    mesh_launches, dp_hits = phase_mesh(bvh, tris, rays, gpu_line)
+    phase_mesh_ranks(dp_hits, tris, dev, 640, gpu_line)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_f64(tris, dev, gpu_line)
+    print(f"phases 19 / 20: {t_mesh:.1f} s / {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4005,7 +4493,8 @@ def main(argv=()):
              ("render_launches", render_launches),
              ("scene_launches", scene_launches),
              ("foliage_launches", omap_launches),
-             ("lbvh_launches", lbvh_launches)) if name in table}}
+             ("lbvh_launches", lbvh_launches),
+             ("mesh_launches", mesh_launches)) if name in table}}
         for name in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2502,3 +2502,92 @@ def test_bvh8q_wavefront_on_cuda_matches_cpu(scene):
     occ = is_occluded_wavefront(q, make_rays(o, d, device="cuda"), 12.0)
     occ_c = is_occluded_wavefront(q_cpu, make_rays(o, d, device="cpu"), 12.0)
     assert torch.equal(occ.cpu(), occ_c)
+
+
+def _f64_instances(big):
+    """4 instances of two BLASes, turned about y, scaled and moved near
+    (big, big, big), one mask bit each (as tests/test_torch_f64.py)."""
+    from tinybvh_tpu_torch.ops.f64 import BLASInstanceEx
+
+    out = []
+    for i in range(4):
+        a = 0.4 * i + 0.1
+        m = np.eye(4)
+        m[:3, :3] = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                              [-np.sin(a), 0, np.cos(a)]]) * (0.5 + 0.3 * i)
+        m[:3, 3] = [big + 6.0 * i, big + 2.0 * (i % 2), big - 3.0 * i]
+        out.append(BLASInstanceEx(i % 2, m, mask=1 << i))
+    return out
+
+
+def test_f64_on_cuda_matches_cpu():
+    """BVHDouble and TLASDouble on the card against their CPU run: prim
+    and inst equal, t, u and v within rtol 1e-12, occlusion equal (each
+    f64 op is a kernel of its own on either device)."""
+    from tinybvh_tpu_torch.ops.f64 import BVHDouble, TLASDouble
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    big = 1e6
+    tris = random_tris(2000, seed=3).astype(np.float64) + big
+    rng = np.random.default_rng(5)
+    o = big + rng.uniform(-2, 12, (4096, 3))
+    d = rng.normal(size=(4096, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    gpu, cpu = BVHDouble(tris), BVHDouble(tris, device="cpu")
+    assert gpu.device.type == "cuda"
+    blas_g = [gpu, BVHDouble(random_tris(300, seed=9, extent=2.0).astype(
+        np.float64))]
+    blas_c = [cpu, BVHDouble(blas_g[1].tris, device="cpu")]
+    tl_g = TLASDouble(_f64_instances(big), blas_g)
+    tl_c = TLASDouble(_f64_instances(big), blas_c, device="cpu")
+    masks = rng.integers(0, 16, 4096)
+    for hg, hc in ((gpu.intersect(o, d), cpu.intersect(o, d)),
+                   (tl_g.intersect(o, d, mask=masks),
+                    tl_c.intersect(o, d, mask=masks))):
+        assert hg["t"].device.type == "cuda"
+        for k in ("prim", "inst"):
+            if k in hc:
+                assert torch.equal(hg[k].cpu(), hc[k]), k
+        assert 0 < float((hc["prim"] >= 0).float().mean()) < 1
+        for k in ("t", "u", "v"):
+            np.testing.assert_allclose(hg[k].cpu().numpy(), hc[k].numpy(),
+                                       rtol=1e-12, err_msg=k)
+    assert torch.equal(gpu.is_occluded(o, d, 5.0).cpu(),
+                       cpu.is_occluded(o, d, 5.0))
+    assert torch.equal(tl_g.is_occluded(o, d, 30.0, mask=masks).cpu(),
+                       tl_c.is_occluded(o, d, 30.0, mask=masks))
+
+
+def test_one_rank_nccl_mesh_matches_intersect_packets2(scene, tmp_path):
+    """A one-rank NCCL process group, mesh 1 x 1: trace_packets_dp and
+    trace_packets_sharded over one shard equal intersect_packets2 on the
+    card (on the same tables) in every field."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from tinybvh_tpu_torch.parallel import mesh as pm
+
+    tris, bvh = scene
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = pm.make_mesh(1, 1)
+        assert mesh.device == torch.device("cuda", 0)
+        o, d = _camera_rays()
+        rays = make_rays(o, d, device="cuda")
+        kw = dict(wf_cap_factor=64)
+        b8s, auxes, gids = pm.shard_scene_packets(tris, 1)
+        dev = mesh.device
+        for got, (b8, aux) in (
+                (pm.trace_packets_dp(mesh, bvh.bvh8, bvh.packet_aux, rays,
+                                     **kw), (bvh.bvh8, bvh.packet_aux)),
+                (pm.trace_packets_sharded(mesh, b8s, auxes, gids, rays, **kw),
+                 (pm._shard(b8s, 0, dev), pm._shard(auxes, 0, dev)))):
+            ref, _ = packet2.intersect_packets2(b8, aux, rays, **kw)
+            for k in ("prim", "t", "u", "v"):
+                assert torch.equal(getattr(got, k), getattr(ref, k)), k
+        assert mesh.stats["collectives"] == 3
+    finally:
+        dist.destroy_process_group()

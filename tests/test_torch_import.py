@@ -49,6 +49,9 @@ def test_import_loads_no_jax():
         "import tinybvh_tpu_torch.render.pathtracer\n"
         "import tinybvh_tpu_torch.render.pathtracer_tlas\n"
         "import tinybvh_tpu_torch.scene.mesh, tinybvh_tpu_torch.scene.graph\n"
+        "import tinybvh_tpu_torch.parallel.mesh\n"
+        "import tinybvh_tpu_torch.parallel.launch\n"
+        "import tinybvh_tpu_torch.ops.f64\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tinybvh_tpu'))\n"
         "print(bad)\n"

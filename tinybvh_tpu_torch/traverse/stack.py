@@ -9,9 +9,10 @@ test of both children that descends into the nearer and pushes the
 farther. The stacks are (R, STACK_DEPTH) tensors updated in place by
 indexed assignment (JAX gathers, merges and scatters (R,) vectors,
 `_scatter_row`). A finished ray is a fixed point of the step, so the
-host loop asks whether any ray is still running only every _CHECK_EVERY
-= 8 steps: one host sync per 8 steps, the same result as checking after
-each. LAST_CALL holds the last call's step and sync counts."""
+host loop (`lockstep`, which the f64 engines of ops/f64.py share) asks
+whether any ray is still running only every _CHECK_EVERY = 8 steps: one
+host sync per 8 steps, the same result as checking after each.
+LAST_CALL holds the last call's step and sync counts."""
 
 from __future__ import annotations
 
@@ -78,13 +79,30 @@ class _Leaves:
         return hit & (self.lanes[None, :] < ct[:, None]), th, uh, vh
 
 
-def _running(done, step):
-    """Whether to take another step: every _CHECK_EVERY steps the host
-    reads whether any ray is still running."""
-    if step % _CHECK_EVERY:
-        return True
-    LAST_CALL["syncs"] += 1
-    return bool((~done).any())
+def lockstep(running, stats, compact=None):
+    """Yield once for each step of a lockstep loop, as long as a row
+    runs. Before the first step and every _CHECK_EVERY steps after it
+    the host reads running(), a bool tensor over the rows (one sync,
+    counted in stats["syncs"]), and stops when no row runs. A finished
+    row is a fixed point of the step, so this ends with the result of a
+    check after each step. compact(live), where given, runs at a check
+    that finds at most half of the rows running, and keeps the running
+    rows alone (stats["compactions"]). stats["steps"] ends as the
+    number of steps taken."""
+    step = 0
+    while True:
+        if step % _CHECK_EVERY == 0:
+            live = running()
+            stats["syncs"] += 1
+            n_live = int(live.sum())
+            if n_live == 0:
+                break
+            if compact is not None and 2 * n_live <= live.shape[0]:
+                compact(live)
+                stats["compactions"] += 1
+        step += 1
+        stats["steps"] = step
+        yield
 
 
 def intersect_bvh2(bvh, packed_tris, rays: Rays, t_max=BVH_FAR,
@@ -117,9 +135,7 @@ def intersect_bvh2(bvh, packed_tris, rays: Rays, t_max=BVH_FAR,
     lf_all, ct_all = bvh.left_first.long(), bvh.count.long()
 
     LAST_CALL.update(steps=0, syncs=0)
-    step = 0
-    while _running(done, step):
-        step += 1
+    for _ in lockstep(lambda: ~done, LAST_CALL):
         # pop: rays without a current node take the top entry if it lies
         # nearer than their best hit
         need_pop = (cur < 0) & ~done
@@ -169,7 +185,6 @@ def intersect_bvh2(bvh, packed_tris, rays: Rays, t_max=BVH_FAR,
         cur = torch.where(is_int, torch.where(near_hit, near_n, -1), cur)
         cur = torch.where(is_leaf, -1, cur)
         cost += proc * 1.0 + torch.where(is_leaf, ct, 0)
-    LAST_CALL["steps"] = step
 
     ok = prim >= 0
     gprim = bvh.prim_idx[torch.clamp(prim, min=0)]
@@ -202,9 +217,7 @@ def is_occluded_bvh2(bvh, packed_tris, rays: Rays, t_max, leaf_max: int = 16,
     lf_all, ct_all = bvh.left_first.long(), bvh.count.long()
 
     LAST_CALL.update(steps=0, syncs=0)
-    step = 0
-    while _running(done, step):
-        step += 1
+    for _ in lockstep(lambda: ~done, LAST_CALL):
         need_pop = (cur < 0) & ~done
         can_pop = need_pop & (sp > 0)
         nsp = torch.where(can_pop, sp - 1, sp)
@@ -238,5 +251,4 @@ def is_occluded_bvh2(bvh, packed_tris, rays: Rays, t_max, leaf_max: int = 16,
         cur = torch.where(is_int, torch.where(
             lh, left, torch.where(rh, right, -1)), cur)
         cur = torch.where(is_leaf, -1, cur)
-    LAST_CALL["steps"] = step
     return occ
