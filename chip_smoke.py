@@ -468,10 +468,13 @@ def oracle_check(hits_sub, rays_sub, tris, what):
 
 
 def launch_tables():
-    """Every kernel module's launch counters."""
+    """Every kernel module's launch counters, as the modules register
+    them in the package's registry (_trace.LAUNCHES)."""
+    from tinybvh_tpu_torch._trace import LAUNCHES
     from tinybvh_tpu_torch.traverse import frustum_walk, leaf_resolve, packet2
 
-    return (packet2.LAUNCHES, leaf_resolve.LAUNCHES, frustum_walk.LAUNCHES)
+    return tuple(LAUNCHES[m.__name__]
+                 for m in (packet2, leaf_resolve, frustum_walk))
 
 
 def reset_launches():

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tinybvh_tpu_torch._trace import api_call
 from tinybvh_tpu_torch.core.rays import Hits, Rays, default_device, make_rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
 
@@ -266,6 +267,7 @@ class BVH:
         per_ray = hasattr(t_max, "shape") and len(t_max.shape) > 0
         return t_max[idx] if per_ray else t_max
 
+    @api_call("intersect")
     def intersect(self, rays: Rays, t_max=BVH_FAR,
                   engine: str = "auto") -> Hits:
         """Closest hit. engine:
@@ -322,6 +324,7 @@ class BVH:
             _check_nans("BVH.intersect", h.t, h.u, h.v)
         return h
 
+    @api_call("is_occluded")
     def is_occluded(self, rays: Rays, t_max,
                     engine: str = "auto") -> torch.Tensor:
         """(R,) bool: any hit in (0, t_max); engine semantics as in

@@ -42,16 +42,17 @@ import torch
 from tinybvh_tpu_torch import _build
 from tinybvh_tpu_torch.core.rays import default_device
 from tinybvh_tpu_torch._timing import events_ms, graph_ms
-from tinybvh_tpu_torch.traverse.packet2 import _check, _count, _on_cuda
+from tinybvh_tpu_torch._trace import count_launch, launch_table
+from tinybvh_tpu_torch.traverse.packet2 import _check, _on_cuda
 
 F, W = 8, 128          # the (8, 128) block of the lane and chain forms
 ROUNDS = 100           # chained rounds of A100 and C100
 REPS = 10              # one-hot products of D
 ONEHOT_M, ONEHOT_F = 64, 96  # D's kernel: 64-row output blocks, 96 columns
 N_TIMED = 200          # launches timed by events and by a CUDA graph
-LAUNCHES = {"row_gather": 0, "col_gather": 0, "lane_gather": 0,
-            "sublane_gather": 0, "flat_take": 0, "chain_gather": 0,
-            "sum_gather": 0, "onehot_gather": 0}
+LAUNCHES = launch_table(__name__, (
+    "row_gather", "col_gather", "lane_gather", "sublane_gather", "flat_take",
+    "chain_gather", "sum_gather", "onehot_gather"))
 
 
 def _launch(name, entry, *args):
@@ -62,7 +63,7 @@ def _launch(name, entry, *args):
     err = getattr(_build.kernels(), entry)(
         *conv, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
-    _count(LAUNCHES, name)
+    count_launch(LAUNCHES, name)
 
 
 # ---- row: table rows by index (pallas_gather_probe.py:20) ----------------

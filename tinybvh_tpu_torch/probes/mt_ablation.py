@@ -52,9 +52,10 @@ import torch
 from tinybvh_tpu_torch import _build
 from tinybvh_tpu_torch.core.rays import default_device
 from tinybvh_tpu_torch._timing import events_ms, graph_ms, once_ms
+from tinybvh_tpu_torch._trace import count_launch, launch_table
 from tinybvh_tpu_torch.traverse.packet import TILE
 from tinybvh_tpu_torch.traverse.packet2 import (
-    _I32MAX, _LEAF_BITS, _check, _count, _features, _on_cuda,
+    _I32MAX, _LEAF_BITS, _check, _features, _on_cuda,
 )
 
 VARIANTS = ("full", "seg8", "seg32", "bigdma", "nodma", "mathonly", "bf16",
@@ -63,7 +64,7 @@ TRI_BLK = 128               # rows per super-block
 LPB = TRI_BLK // 4          # leaf keys per super-block
 _SPAN = {"seg8": 8, "seg32": 32}
 _TILES = 64                 # plain twin: tiles per chunk (bounds temporaries)
-LAUNCHES = {"mt_ablation": 0}
+LAUNCHES = launch_table(__name__, ("mt_ablation",))
 N_TIMED = 10                # launches timed by events and by a CUDA graph
 # the split of the tile loop: (what, minuend, subtrahend)
 SPLIT = (("scattered copies", "full", "bigdma"),
@@ -252,7 +253,7 @@ def _ablation_cuda(keys, counts, lbg, tmax, o_t, d_t, gtab, variant: str):
         VARIANTS.index(variant),
         torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check(err, "tbvh_mt_ablation")
-    _count(LAUNCHES, "mt_ablation")
+    count_launch(LAUNCHES, "mt_ablation")
     return t, i
 
 

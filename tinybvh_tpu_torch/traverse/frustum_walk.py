@@ -22,11 +22,12 @@ import torch
 
 from tinybvh_tpu_torch import _build
 from tinybvh_tpu_torch.layouts.mbvh import EMPTY_SLOT
-from tinybvh_tpu_torch.traverse.packet2 import _check, _count, _on_cuda
+from tinybvh_tpu_torch._trace import count_launch, launch_table
+from tinybvh_tpu_torch.traverse.packet2 import _check, _on_cuda
 
 STACK = 64
 _I32MAX = 2**31 - 1
-LAUNCHES = {"frustum_walk": 0}
+LAUNCHES = launch_table(__name__, ("frustum_walk",))
 
 
 def _max_steps(n_nodes: int) -> int:
@@ -124,7 +125,7 @@ def _walk_cuda(bounds, child, planes, ndoto, max_leaves: int, seq=None):
     else:
         err = lib.tbvh_frustum_walk_seq(*args, seq.data_ptr(), stream)
     _build.check(err, "tbvh_frustum_walk")
-    _count(LAUNCHES, "frustum_walk")
+    count_launch(LAUNCHES, "frustum_walk")
     return leaves, counts
 
 

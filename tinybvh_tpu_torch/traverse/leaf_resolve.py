@@ -32,10 +32,12 @@ import torch
 
 from tinybvh_tpu_torch import _build
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
-from tinybvh_tpu_torch.traverse.packet2 import _check, _count, _on_cuda
+from tinybvh_tpu_torch._trace import count_launch, launch_table
+from tinybvh_tpu_torch.traverse.packet2 import _check, _on_cuda
 
 TILE = 256
-LAUNCHES = {"leaf_resolve_v2": 0, "leaf_resolve_v3": 0, "leaf_resolve": 0}
+LAUNCHES = launch_table(__name__, ("leaf_resolve_v2", "leaf_resolve_v3",
+                                   "leaf_resolve"))
 _TILES = 8   # plain twins: tiles per chunk (bounds temporaries)
 
 
@@ -161,7 +163,7 @@ def _resolve_v2_cuda(o_t, d_t, geom, wide: bool = False):
                                    idx.data_ptr(), T, K4, int(wide),
                                    _v3_block(K4), stream)
     _build.check(err, "tbvh_leaf_resolve_v2")
-    _count(LAUNCHES, "leaf_resolve_v3" if wide else "leaf_resolve_v2")
+    count_launch(LAUNCHES, "leaf_resolve_v3" if wide else "leaf_resolve_v2")
     return t, idx
 
 
@@ -231,7 +233,7 @@ def _resolve_cuda(o_t, d_t, geom, live, rows):
                                 rows.data_ptr(), t.data_ptr(), pk.data_ptr(),
                                 T, K, stream)
     _build.check(err, "tbvh_leaf_resolve")
-    _count(LAUNCHES, "leaf_resolve")
+    count_launch(LAUNCHES, "leaf_resolve")
     return t, pk
 
 

@@ -23,6 +23,9 @@ PyTorch twin of the same signature beside it:
 A wrapper runs the plain twin only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts kernel
 launches (never plain-twin calls, nor calls a CUDA graph captures).
+Inside an API call traced by a torch profiler, the pipeline's steps are
+the spans tbvh.sort, tbvh.cull, tbvh.resolve and tbvh.retrace, and the
+overflow read counts the rays sent to the retrace (_trace.py).
 
 Everything around the kernels (tile frusta, the coarse block tier, the
 worklist compaction, block ordering or the full key sort, offset
@@ -43,7 +46,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tinybvh_tpu_torch import _build
+from tinybvh_tpu_torch import _build, _trace
+from tinybvh_tpu_torch._trace import count_launch, launch_table
 from tinybvh_tpu_torch.core.intersect import omap_cells
 from tinybvh_tpu_torch.core.rays import Hits, Rays, make_rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR, cross, norm
@@ -72,8 +76,8 @@ _D_OHI = 31      # 3 lanes: tile origin-box hi
 _D_TCAP = 34     # 1 lane: reach cap (world distance)
 _D_LANES = 35
 
-LAUNCHES = {"cull": 0, "mt_fused": 0, "mt_fused_omap": 0, "mt_gathered": 0,
-            "cull_blocks": 0}
+LAUNCHES = launch_table(__name__, ("cull", "mt_fused", "mt_fused_omap",
+                                   "mt_gathered", "cull_blocks"))
 
 
 @dataclass
@@ -227,13 +231,6 @@ def _on_cuda(name, *tensors) -> bool:
     raise ValueError(f"{name}: unsupported device {dev}")
 
 
-def _count(table, name) -> None:
-    """One more launch of `name` in `table`, unless a CUDA graph captures
-    the call (recorded there, not run: the graph's replays run it)."""
-    if not torch.cuda.is_current_stream_capturing():
-        table[name] += 1
-
-
 def _check(name, t, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -298,7 +295,7 @@ def _cull_blocks_cuda(desc, blk_lo, blk_hi, n_blocks: int):
                                blk_hi.data_ptr(), mask.data_ptr(), G, nbpad,
                                n_blocks, stream)
     _build.check(err, "tbvh_cull_blocks")
-    _count(LAUNCHES, "cull_blocks")
+    count_launch(LAUNCHES, "cull_blocks")
     return mask
 
 
@@ -399,7 +396,7 @@ def _cull_cuda(nblk, wl, desc, llo, lhi, n_leaves: int, k_cap: int,
                         cnt.data_ptr(), G, max_blocks, spad, n_leaves,
                         k_cap, leaf_bits, stream)
     _build.check(err, "tbvh_cull")
-    _count(LAUNCHES, "cull")
+    count_launch(LAUNCHES, "cull")
     return keys, cnt
 
 
@@ -681,7 +678,7 @@ def _mt_fused_cuda(offs, counts, lbg, tmax, ff, t0, gtab, k_cap: int,
                             T, k_cap, nb, tri_blk, rps, pack, int(any_hit),
                             omap_s, stream)
     _build.check(err, "tbvh_mt_fused")
-    _count(LAUNCHES, "mt_fused_omap" if omap_s else "mt_fused")
+    count_launch(LAUNCHES, "mt_fused_omap" if omap_s else "mt_fused")
     return tuple(outs)
 
 
@@ -790,7 +787,7 @@ def _mt_cuda(o_t, d_t, geom, lbg, tmax):
                                tmax.data_ptr(), t.data_ptr(), idx.data_ptr(),
                                T, K4, nb, stream)
     _build.check(err, "tbvh_mt_gathered")
-    _count(LAUNCHES, "mt_gathered")
+    count_launch(LAUNCHES, "mt_gathered")
     return t, idx
 
 
@@ -870,6 +867,17 @@ def _merge(ov_ray, new: Hits, old: Hits) -> Hits:
                 inst=old.inst)
 
 
+def _any_overflow(overflow) -> bool:
+    """Whether any tile of the (T,) mask overflowed, by one host read: the
+    host copies the mask (one copy, where `any` would reduce it first and
+    a device sum would cast it first) and counts the tiles; in a traced
+    API call the call's record gets the rays traced and the rays sent to
+    the retrace."""
+    sent = int(overflow.cpu().sum()) * TILE
+    _trace.note(rays=overflow.shape[0] * TILE, sent=sent)
+    return sent > 0
+
+
 def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
                        max_leaves: int = 256, t_max=BVH_FAR,
                        retrace=True, wf_cap_factor: int = 8,
@@ -934,132 +942,140 @@ def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
     T = R // TILE
     o = rays.o.reshape(T, TILE, 3)
     d = rays.d.reshape(T, TILE, 3)
-    (posn, negn, thresh, olo, ohi, tcap, dlen,
-     tmax_rt, t0_rt) = _tile_frusta(aux, rays, t_max)
+    with _trace.span("cull"):
+        (posn, negn, thresh, olo, ohi, tcap, dlen,
+         tmax_rt, t0_rt) = _tile_frusta(aux, rays, t_max)
 
-    # segment ids must fit the key's low bits (scenes beyond 2^18 segments
-    # trade distance-ordering granularity for id range)
-    leaf_bits = max(_LEAF_BITS,
-                    (aux.leaf_lo.shape[1] // span_mult - 1).bit_length())
-    keys, counts = cull_tiles(aux, posn, negn, thresh, olo, ohi, tcap,
-                              k_cap=Kk, max_blocks=max_blocks,
-                              leaf_bits=leaf_bits, span_mult=span_mult)
-    overflow = counts > Kk
+        # segment ids must fit the key's low bits (scenes beyond 2^18 segments
+        # trade distance-ordering granularity for id range)
+        leaf_bits = max(_LEAF_BITS,
+                        (aux.leaf_lo.shape[1] // span_mult - 1).bit_length())
+        keys, counts = cull_tiles(aux, posn, negn, thresh, olo, ohi, tcap,
+                                  k_cap=Kk, max_blocks=max_blocks,
+                                  leaf_bits=leaf_bits, span_mult=span_mult)
+        overflow = counts > Kk
 
-    nbk = Kk // kpb
-    keys_s = keys
-    if sort:
-        # near-to-far order of every key: mid-list early exit
-        keys_s = torch.sort(keys, dim=1).values
-    elif fused:
-        # near-to-far super-block order: sort each tile's Kk/kpb blocks by
-        # their least entry distance, so the kernel's gate early exit is
-        # correct mid-list
-        lb0, _ = _decode_keys(keys, leaf_bits)
-        lbmin = torch.where(keys != _I32MAX, lb0, BVH_FAR).reshape(
-            T, nbk, kpb).amin(dim=2)
-        order = torch.argsort(lbmin, dim=1, stable=True)
-        keys_s = torch.take_along_dim(keys.reshape(T, nbk, kpb),
-                                      order[..., None], dim=1).reshape(T, Kk)
-    lb, segs = _decode_keys(keys_s, leaf_bits)
-    live = keys_s != _I32MAX
-    lrow = torch.where(live, segs, 0)
+        nbk = Kk // kpb
+        keys_s = keys
+        if sort:
+            # near-to-far order of every key: mid-list early exit
+            keys_s = torch.sort(keys, dim=1).values
+        elif fused:
+            # near-to-far super-block order: sort each tile's Kk/kpb blocks by
+            # their least entry distance, so the kernel's gate early exit is
+            # correct mid-list
+            lb0, _ = _decode_keys(keys, leaf_bits)
+            lbmin = torch.where(keys != _I32MAX, lb0, BVH_FAR).reshape(
+                T, nbk, kpb).amin(dim=2)
+            order = torch.argsort(lbmin, dim=1, stable=True)
+            keys_s = torch.take_along_dim(
+                keys.reshape(T, nbk, kpb), order[..., None],
+                dim=1).reshape(T, Kk)
+        lb, segs = _decode_keys(keys_s, leaf_bits)
+        live = keys_s != _I32MAX
+        lrow = torch.where(live, segs, 0)
 
-    # gates in ray-t units: entry distance / max |d| over the tile; dead
-    # blocks gate at +inf, non-finite gates degrade to 0 (always pass)
-    maxd = torch.clamp(dlen.amax(dim=1), min=1e-20)
-    blk_live = live.reshape(T, nbk, kpb).any(dim=2)
-    lb_live = torch.where(live, lb, BVH_FAR)
-    if sort:
-        gate = lb_live[:, ::kpb] / maxd[:, None]
-    elif fused:
-        gate = lb_live.reshape(T, nbk, kpb).amin(dim=2) / maxd[:, None]
-    else:
-        gate = torch.zeros((T, nbk), dtype=torch.float32, device=o.device)
-    gate = torch.where(torch.isfinite(gate), gate, 0.0)
-    lbg = torch.where(blk_live, gate, float("inf")).reshape(T, 1, nbk)
-
-    o_c = (o - aux.center).permute(0, 2, 1)              # (T, 3, 256)
-    d_t = d.permute(0, 2, 1)
-    # the kernels' per-tile initial bound is the tile max; per-ray bounds
-    # are enforced by the comparison against tmax_r below
-    tmax = tmax_rt.amax(dim=1).reshape(T, 1)
-    tmax_r = tmax_rt.reshape(R)
-    if fused:
-        # the block reorder scatters live keys out of prefix order: count
-        # covers every live block (dead keys inside are masked or hit the
-        # zero sentinel segment)
-        n_live_blk = blk_live.sum(dim=1, dtype=torch.int32)
-        cnt_k = torch.where(torch.clamp(counts, max=Kk) > 0,
-                            n_live_blk * kpb, 0)
-        # pre-decoded row offsets; dead keys -> the all-zero sentinel
-        # segment
-        sent_seg = -(-aux.n_segs // span_mult)
-        offs = (torch.where(live, torch.clamp(segs, max=sent_seg), sent_seg)
-                * rps).to(torch.int32)
-        # any-hit keeps the scalar cutoff init: its early stop compares
-        # t_far against the cutoff
-        best_t, _, ku, kv, kp = mt_resolve_fused(
-            offs, cnt_k, lbg, tmax, o_c, d_t, aux.gtab_pad, k_cap=Kk,
-            omap_s=aux.omap_s, any_hit=any_hit, tri_blk=tb_eff,
-            t0=None if any_hit else t0_rt, pack=aux.pack, rps=rps)
-        # misses settle at their exit-t init with prim = -1: prim, not t,
-        # is the miss signal
-        okf = ((kp >= 0) & (best_t < tmax_r.reshape(T, TILE))).reshape(-1)
-        hits = Hits(
-            t=torch.where(okf, best_t.reshape(-1), BVH_FAR),
-            u=torch.where(okf, ku.reshape(-1), 0.0),
-            v=torch.where(okf, kv.reshape(-1), 0.0),
-            prim=torch.where(okf, kp.reshape(-1), -1),
-            inst=torch.full((R,), -1, dtype=torch.int32, device=o.device),
-        )
-    else:
-        # per-triangle row gather straight into kernel layout (T, K4, 48);
-        # dead entries read the all-zero row past the real triangles
-        # (det = 0 never hits). pack=2 rows hold triangle pairs: their
-        # first 96 lanes reshape to per-triangle 48-lane rows in order.
-        gflat = (aux.gtab_pad[:, :96].reshape(-1, 48) if aux.pack == 2
-                 else aux.gtab_pad[:, :48])
-        zrow = 4 * aux.n_leaf_rows
-        lanes_s = torch.arange(SEG_ROWS, device=o.device)
-        tri_idx = torch.where(
-            live[:, :, None],
-            torch.clamp(lrow[:, :, None] * SEG_ROWS + lanes_s, max=zrow),
-            zrow).reshape(T, Kk * SEG_ROWS)
-        best_t, best_i = mt_resolve(o_c.contiguous(), d_t.contiguous(),
-                                    gflat[tri_idx].contiguous(),
-                                    lbg.contiguous(),
-                                    tmax.reshape(T, 1, 1).contiguous())
-        # row in the list -> (segment, leaf in segment, lane)
-        pos = (best_i // SEG_ROWS).long()
-        within = best_i % SEG_ROWS
-        seg = torch.gather(lrow, 1, pos)
-        row = torch.clamp(seg * SPAN + (within >> 2),
-                          max=bvh8.leaf_prim.shape[0] - 1)
-        best_t = torch.where(best_t < tmax_r.reshape(T, TILE), best_t,
-                             BVH_FAR)
-        hits = _finish(bvh8, rays, best_t, row * 4 + (within & 3))
-
-    if retrace and bool(overflow.any()):
-        ov_ray = torch.repeat_interleave(overflow, TILE)
-        if retrace == "packet":
-            h2, ov2 = intersect_packets2(
-                bvh8, aux, rays, max_leaves=retrace_ml or 4 * max_leaves,
-                t_max=torch.where(ov_ray, tmax_r, 0.0), retrace=False,
-                sort=sort, fused=fused,
-                max_blocks=retrace_blocks or max_blocks, any_hit=any_hit,
-                tri_blk=tri_blk, span_mult=span_mult)
+        # gates in ray-t units: entry distance / max |d| over the tile; dead
+        # blocks gate at +inf, non-finite gates degrade to 0 (always pass)
+        maxd = torch.clamp(dlen.amax(dim=1), min=1e-20)
+        blk_live = live.reshape(T, nbk, kpb).any(dim=2)
+        lb_live = torch.where(live, lb, BVH_FAR)
+        if sort:
+            gate = lb_live[:, ::kpb] / maxd[:, None]
+        elif fused:
+            gate = lb_live.reshape(T, nbk, kpb).amin(dim=2) / maxd[:, None]
         else:
-            from tinybvh_tpu_torch.traverse.wavefront import (
-                intersect_wavefront,
-            )
+            gate = torch.zeros((T, nbk), dtype=torch.float32, device=o.device)
+        gate = torch.where(torch.isfinite(gate), gate, 0.0)
+        lbg = torch.where(blk_live, gate, float("inf")).reshape(T, 1, nbk)
 
-            h2, ov2 = intersect_wavefront(
-                bvh8, rays, t_max=torch.where(ov_ray, tmax_r, 0.0),
-                cap_factor=wf_cap_factor, omap=aux.omap)
-        hits = _merge(ov_ray, h2, hits)
-        # only tiles that may still be inexact stay flagged
-        overflow = overflow & ov2
+    with _trace.span("resolve"):
+        o_c = (o - aux.center).permute(0, 2, 1)              # (T, 3, 256)
+        d_t = d.permute(0, 2, 1)
+        # the kernels' per-tile initial bound is the tile max; per-ray bounds
+        # are enforced by the comparison against tmax_r below
+        tmax = tmax_rt.amax(dim=1).reshape(T, 1)
+        tmax_r = tmax_rt.reshape(R)
+        if fused:
+            # the block reorder scatters live keys out of prefix order: count
+            # covers every live block (dead keys inside are masked or hit the
+            # zero sentinel segment)
+            n_live_blk = blk_live.sum(dim=1, dtype=torch.int32)
+            cnt_k = torch.where(torch.clamp(counts, max=Kk) > 0,
+                                n_live_blk * kpb, 0)
+            # pre-decoded row offsets; dead keys -> the all-zero sentinel
+            # segment
+            sent_seg = -(-aux.n_segs // span_mult)
+            offs = (torch.where(live, torch.clamp(segs, max=sent_seg),
+                                sent_seg) * rps).to(torch.int32)
+            # any-hit keeps the scalar cutoff init: its early stop compares
+            # t_far against the cutoff
+            best_t, _, ku, kv, kp = mt_resolve_fused(
+                offs, cnt_k, lbg, tmax, o_c, d_t, aux.gtab_pad, k_cap=Kk,
+                omap_s=aux.omap_s, any_hit=any_hit, tri_blk=tb_eff,
+                t0=None if any_hit else t0_rt, pack=aux.pack, rps=rps)
+            # misses settle at their exit-t init with prim = -1: prim, not t,
+            # is the miss signal
+            okf = ((kp >= 0) & (best_t < tmax_r.reshape(T, TILE))).reshape(-1)
+            hits = Hits(
+                t=torch.where(okf, best_t.reshape(-1), BVH_FAR),
+                u=torch.where(okf, ku.reshape(-1), 0.0),
+                v=torch.where(okf, kv.reshape(-1), 0.0),
+                prim=torch.where(okf, kp.reshape(-1), -1),
+                inst=torch.full((R,), -1, dtype=torch.int32, device=o.device),
+            )
+        else:
+            # per-triangle row gather straight into kernel layout (T, K4, 48);
+            # dead entries read the all-zero row past the real triangles
+            # (det = 0 never hits). pack=2 rows hold triangle pairs: their
+            # first 96 lanes reshape to per-triangle 48-lane rows in order.
+            gflat = (aux.gtab_pad[:, :96].reshape(-1, 48) if aux.pack == 2
+                     else aux.gtab_pad[:, :48])
+            zrow = 4 * aux.n_leaf_rows
+            lanes_s = torch.arange(SEG_ROWS, device=o.device)
+            tri_idx = torch.where(
+                live[:, :, None],
+                torch.clamp(lrow[:, :, None] * SEG_ROWS + lanes_s, max=zrow),
+                zrow).reshape(T, Kk * SEG_ROWS)
+            best_t, best_i = mt_resolve(o_c.contiguous(), d_t.contiguous(),
+                                        gflat[tri_idx].contiguous(),
+                                        lbg.contiguous(),
+                                        tmax.reshape(T, 1, 1).contiguous())
+            # row in the list -> (segment, leaf in segment, lane)
+            pos = (best_i // SEG_ROWS).long()
+            within = best_i % SEG_ROWS
+            seg = torch.gather(lrow, 1, pos)
+            row = torch.clamp(seg * SPAN + (within >> 2),
+                              max=bvh8.leaf_prim.shape[0] - 1)
+            best_t = torch.where(best_t < tmax_r.reshape(T, TILE), best_t,
+                                 BVH_FAR)
+            hits = _finish(bvh8, rays, best_t, row * 4 + (within & 3))
+
+    if retrace:
+        with _trace.span("retrace"):
+            if _any_overflow(overflow):
+                ov_ray = torch.repeat_interleave(overflow, TILE)
+                t_ov = torch.where(ov_ray, tmax_r, 0.0)
+                if retrace == "packet":
+                    h2, ov2 = intersect_packets2(
+                        bvh8, aux, rays,
+                        max_leaves=retrace_ml or 4 * max_leaves, t_max=t_ov,
+                        retrace=False, sort=sort, fused=fused,
+                        max_blocks=retrace_blocks or max_blocks,
+                        any_hit=any_hit, tri_blk=tri_blk,
+                        span_mult=span_mult)
+                else:
+                    from tinybvh_tpu_torch.traverse.wavefront import (
+                        intersect_wavefront,
+                    )
+
+                    _trace.note(retrace=True)
+                    h2, ov2 = intersect_wavefront(bvh8, rays, t_max=t_ov,
+                                                  cap_factor=wf_cap_factor,
+                                                  omap=aux.omap)
+                hits = _merge(ov_ray, h2, hits)
+                # only tiles that may still be inexact stay flagged
+                overflow = overflow & ov2
     if return_counts:
         return hits, overflow, counts
     return hits, overflow
@@ -1075,14 +1091,18 @@ def intersect_packets2_sorted(bvh8: BVH8, aux: PacketAux, rays: Rays,
                               span_mult: int = 1):
     """Packet trace for incoherent rays: coherence-sort into tiles, trace,
     scatter back. Returns (Hits in input order, (R,) overflow mask)."""
-    order, inverse = sort_rays_coherent(rays.o, rays.d, scene_lo, scene_hi)
+    with _trace.span("sort"):
+        order, inverse = sort_rays_coherent(rays.o, rays.d, scene_lo,
+                                            scene_hi)
+        rays = rays.take(order)
     hits, overflow = intersect_packets2(
-        bvh8, aux, rays.take(order), max_leaves=max_leaves,
+        bvh8, aux, rays, max_leaves=max_leaves,
         retrace=retrace, wf_cap_factor=wf_cap_factor, any_hit=any_hit,
         t_max=t_max_static, max_blocks=max_blocks, retrace_ml=retrace_ml,
         retrace_blocks=retrace_blocks, tri_blk=tri_blk, span_mult=span_mult)
-    return hits.take(inverse), torch.repeat_interleave(overflow,
-                                                       TILE)[inverse]
+    with _trace.span("sort"):
+        return hits.take(inverse), torch.repeat_interleave(overflow,
+                                                           TILE)[inverse]
 
 
 def _occluded(bvh8: BVH8, aux: PacketAux, rays: Rays, cutoff: float,
@@ -1096,16 +1116,22 @@ def _occluded(bvh8: BVH8, aux: PacketAux, rays: Rays, cutoff: float,
     hits, overflow = intersect_packets2(
         bvh8, aux, rays, t_max=cutoff, any_hit=True,
         retrace="packet" if retrace == "packet" else False, **kw)
-    occ = (hits.prim >= 0) & (hits.t < cutoff)
-    if retrace and retrace != "packet" and bool(overflow.any()):
-        from tinybvh_tpu_torch.traverse.wavefront import intersect_wavefront
+    with _trace.span("resolve"):
+        occ = (hits.prim >= 0) & (hits.t < cutoff)
+    if retrace and retrace != "packet":
+        with _trace.span("retrace"):
+            if _any_overflow(overflow):
+                from tinybvh_tpu_torch.traverse.wavefront import (
+                    intersect_wavefront,
+                )
 
-        ov_ray = torch.repeat_interleave(overflow, TILE)
-        _, wf_occ, wf_ovf = intersect_wavefront(
-            bvh8, rays, t_max=torch.where(ov_ray, cutoff, 0.0),
-            cap_factor=wf_cap_factor, any_hit=True, omap=aux.omap)
-        occ = torch.where(ov_ray, wf_occ, occ)
-        overflow = overflow & wf_ovf
+                ov_ray = torch.repeat_interleave(overflow, TILE)
+                _trace.note(retrace=True)
+                _, wf_occ, wf_ovf = intersect_wavefront(
+                    bvh8, rays, t_max=torch.where(ov_ray, cutoff, 0.0),
+                    cap_factor=wf_cap_factor, any_hit=True, omap=aux.omap)
+                occ = torch.where(ov_ray, wf_occ, occ)
+                overflow = overflow & wf_ovf
     return occ, overflow
 
 
@@ -1152,10 +1178,15 @@ def occluded_direction_sorted(bvh8: BVH8, aux: PacketAux, rays: Rays,
     """Any hit in (0, cutoff) for rays sharing one origin, bundled by
     quantized-direction morton order. Returns ((R,) occluded, (R,)
     overflow) in input order; kw as is_occluded_packets2."""
-    d = rays.d
-    dn = d / torch.clamp(norm(d, keepdim=True), min=1e-20)
-    q = torch.clamp(((dn + 1.0) * 0.5 * 1024.0).to(torch.int32), 0, 1023)
-    order = torch.argsort(_morton3(q), stable=True)
-    inverse = inverse_permutation(order)
-    occ, overflow = _occluded(bvh8, aux, rays.take(order), cutoff, **kw)
-    return occ[inverse], torch.repeat_interleave(overflow, TILE)[inverse]
+    with _trace.span("sort"):
+        d = rays.d
+        dn = d / torch.clamp(norm(d, keepdim=True), min=1e-20)
+        q = torch.clamp(((dn + 1.0) * 0.5 * 1024.0).to(torch.int32), 0,
+                        1023)
+        order = torch.argsort(_morton3(q), stable=True)
+        inverse = inverse_permutation(order)
+        rays = rays.take(order)
+    occ, overflow = _occluded(bvh8, aux, rays, cutoff, **kw)
+    with _trace.span("sort"):
+        return occ[inverse], torch.repeat_interleave(overflow,
+                                                     TILE)[inverse]

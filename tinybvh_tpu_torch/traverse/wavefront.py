@@ -25,6 +25,8 @@ lane: the slots the JAX scatter-max/cummax map and its rank-to-lane
 lookup produce, in the same order. That `nonzero` is the level loop's
 one host sync (about tree depth, 7-15 syncs per call). And a pair
 without a candidate folds I32MAX into its own ray instead of ray 0.
+Inside an API call traced by a torch profiler, the loop's levels, its
+pairs and its largest frontier go to the call's record (_trace.py).
 
 The leaf test follows Config.tri_test (≙ JAX wavefront.py:122-131,
 191-200). "mt" gathers v0 / e1 / e2; the two others gather one 48-float
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from tinybvh_tpu_torch import _trace
 from tinybvh_tpu_torch.core.intersect import (
     check_tri_test, leaf_intersect, moller_trumbore, omap_cells,
     precompute_baldwin_weber, tri_edges,
@@ -143,6 +146,7 @@ def intersect_wavefront(bvh8: BVH8 | BVH8Q, rays: Rays, t_max=BVH_FAR,
     pc = torch.zeros(R, dtype=torch.int32, device=dev)       # root row 0
     pt = torch.zeros(R, dtype=torch.float32, device=dev)     # entry t
     n_pairs, level, overflow = R, 0, False
+    pairs = peak = R        # counters of a traced call: host ints, no sync
     while n_pairs > 0 and level < MAX_LEVELS:
         t_best = tkey.view(torch.float32)
         tb = t_best[pr]
@@ -201,6 +205,7 @@ def intersect_wavefront(bvh8: BVH8 | BVH8Q, rays: Rays, t_max=BVH_FAR,
         # compact the next level's pairs, in pair order then lane order
         valid &= dist < tkey.view(torch.float32)[pr][:, None]
         flat = torch.nonzero(valid.reshape(-1)).squeeze(1)   # host sync
+        peak = max(peak, flat.shape[0])
         if flat.shape[0] > P:
             overflow = True
             flat = flat[:P]
@@ -208,9 +213,11 @@ def intersect_wavefront(bvh8: BVH8 | BVH8Q, rays: Rays, t_max=BVH_FAR,
         pc = kids.reshape(-1)[flat]
         pt = dist.reshape(-1)[flat]
         n_pairs = flat.shape[0]
+        pairs += n_pairs
         level += 1
     # stopping at MAX_LEVELS with pairs pending is silent truncation
     overflow = overflow or n_pairs > 0
+    _trace.note(levels=level, pairs=pairs, peak=peak, cap=P)
 
     # the full hit record from (tkey, win)
     ok = win != _I32MAX
