@@ -25,16 +25,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and device time alone (a CUDA graph of the calls);
   4. main path through the API: BVH(tris, device="cuda").intersect(rays)
      and .is_occluded() for shadow segments from a point light to the
-     hit points, with the wavefront retrace; launch counts, zero residual
-     overflow, and agreement with the brute-force oracle on a 2048-ray
+     hit points, with the exact retrace (kernel R); launch counts, zero
+     residual overflow, and agreement with the brute-force oracle on a 2048-ray
      subset (prim agreement >= 0.999, hit-t checksum within 1%, as
      tiny_bvh_speedtest.cpp's ValidateTraceResult gate); the same calls
      with the escalated packet retrace (16384 leaves) timed beside them;
+     kernel R against its plain twin (the wavefront merged over the
+     packet pass's hits) on the arguments of both API calls' retraces,
+     t, u, v and prim (or the occlusion flags) and the overflow mask bit
+     for bit, both timed, with R's device time and its bound from the
+     visits it counts;
   5. real size: the 4x4 grid of that scene (1,048,576 triangles), one
      primary trace through intersect_packets2 with the grid16 budgets,
      kernel G against its twin on that trace's cull descriptors (nbpad >
      128) with its device time and bound, and the API's default path
-     (primary and shadow, wavefront retrace) gated by the oracles, with
+     (primary and shadow, exact retrace) gated by the oracles, with
      its peak device memory;
   6. kernels C and G against their twins: C at the fused=False path's
      shapes (T=1600 tiles, max_leaves=512, K4=2048 rows) with the rows
@@ -47,10 +52,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      production cull's worklists, survivor counts and keys;
   8. the fused=False path (kernel C) and sort=True against the fused path
      on every ray, and the oracle on 2048 rays; each timed with and
-     without the wavefront retrace;
-  9. the wavefront retrace on the card: a 64-leaf first budget that
-     overflows most tiles, closest hit and the any-hit shadow trace,
-     gated by the oracles with zero residual overflow;
+     without the exact retrace;
+  9. the exact retrace on the card (kernel R, traverse/retrace.py): a
+     64-leaf first budget that overflows most tiles, closest hit and the
+     any-hit shadow trace, gated by the oracles with zero residual
+     overflow, and kernel R equal to its twin on both retraces' arguments;
  10. the API off the packet path: 1000 rays and 4096 rays with a per-ray
      t_max (wavefront engine, with its lockstep fallback), engine=
      "lockstep", and 1000 rays on a sphere (the wavefront's own hits),
@@ -154,8 +160,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      radius hashed from the prim id; about half the cells opaque) at S = 8
      (pack 2) and S = 16 (pack 1): phase 4's camera rays through
      intersect_packets2 and shadow segments to their hits through
-     is_occluded_packets2 (h100 row budgets, the wavefront retrace with
-     the micromaps at its cap), the launch counts reset just before and
+     is_occluded_packets2 (h100 row budgets, the exact retrace with the
+     micromaps), the launch counts reset just before and
      read just after; zero residual overflow, prim agreement >= 0.999
      and the hit-t checksum within 1% against an alpha-aware brute force
      on 2048 rays (all pairs, Möller–Trumbore, the cell's bit, the
@@ -207,7 +213,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      build split into the device build, host copies and uploads, the
      Python collapse and the packet tables, intersect and is_occluded
      on phase 4's rays through packet2 (kernels A and B, their launches
-     reset just before and read just after) with the wavefront retrace,
+     reset just before and read just after) with the exact retrace,
      phase 4's gates, and the SAH API timed beside it; (c) the wavefront
      at the h100 row's cap on random64k's BVH8Q against its BVH8: prims
      equal on every ray, MRays/s, one profiled call's device ms,
@@ -297,7 +303,10 @@ REPLACES = {"cull": "tinybvh_tpu/traverse/packet2.py:488",
             "gather_D2048": "benchmarks/pallas_gather_probe2.py:155",
             "gather_D8192": "benchmarks/pallas_gather_probe2.py:155",
             "mt_ablation": "benchmarks/mt_ablation_probe.py:115",
-            "mt_fused_omap": "tinybvh_tpu/traverse/packet2.py:858"}
+            "mt_fused_omap": "tinybvh_tpu/traverse/packet2.py:858",
+            # no TPU kernel: the JAX package runs the exact retrace as XLA
+            # ops (tinybvh_tpu/traverse/wavefront.py intersect_wavefront)
+            "retrace": "none", "retrace_any": "none"}
 SOURCES = {"cull": "cull.cu", "mt_fused": "mt_fused.cu",
            "mt_gathered": "mt_gathered.cu", "cull_blocks": "cull_blocks.cu",
            "leaf_resolve_v2": "leaf_resolve.cu",
@@ -306,7 +315,8 @@ SOURCES = {"cull": "cull.cu", "mt_fused": "mt_fused.cu",
            "frustum_walk": "frustum_walk.cu",
            **dict.fromkeys([k for k in REPLACES if k.startswith("gather")],
                            "gather_probe.cu"),
-           "mt_ablation": "mt_ablation.cu", "mt_fused_omap": "mt_fused.cu"}
+           "mt_ablation": "mt_ablation.cu", "mt_fused_omap": "mt_fused.cu",
+           "retrace": "retrace.cu", "retrace_any": "retrace.cu"}
 ORACLE_RAYS = 2048
 
 # The least time the card could take for a kernel's work: the larger of
@@ -342,6 +352,11 @@ OPS_PER_UNIT = {"cull": 76, "cull_blocks": 52, "mt_fused": 112,
 # min; bf16: the dots as 96 bf16 operations (K = 12, the padding not
 # counted), the epilogue in fp32; skeleton: one add per ray, no row.
 ABLATION_OPS = {"mathonly": {"fp32": 100}, "bf16": {"bf16": 96, "fp32": 16}}
+# Kernel R (csrc/retrace.cu), per visit it counts: a node 235 (8 slab
+# tests of 6 subtracts, 6 multiplies, 10 min / max and 5 compares, and the
+# 19 compare-exchanges of its sort), a leaf 240 (4 Möller–Trumbore tests
+# of 24 adds or subtracts, 27 multiplies, a division and 8 compares).
+RETRACE_OPS = {"node": 235, "leaf": 240}
 ABLATION_OPS_DEFAULT = {"fp32": 112}
 
 
@@ -442,6 +457,141 @@ def capture(packet2, names):
     return rec, restore
 
 
+def capture_retrace():
+    """Patch retrace.retrace_hits / retrace_occluded (which packet2 imports
+    at each retrace) to record each call's arguments, with the overflow
+    mask and the hits or flags that kernel R rewrites in place cloned
+    before the call; returns (records, restore)."""
+    from tinybvh_tpu_torch.core.rays import Hits
+    from tinybvh_tpu_torch.traverse import retrace
+
+    names = ("retrace_hits", "retrace_occluded")
+    rec = {n: [] for n in names}
+    real = {n: getattr(retrace, n) for n in names}
+
+    def clone(x):
+        if isinstance(x, Hits):
+            return Hits(**{k: v.clone() for k, v in x.__dict__.items()})
+        return x.clone()
+
+    def wrap(n):
+        def f(bvh8, aux, rays, t_max, overflow, out, **kw):
+            rec[n].append(((bvh8, aux, rays, t_max, overflow.clone(),
+                            clone(out)), kw))
+            return real[n](bvh8, aux, rays, t_max, overflow, out, **kw)
+        return f
+
+    for n in names:
+        setattr(retrace, n, wrap(n))
+
+    def restore():
+        for n in names:
+            setattr(retrace, n, real[n])
+    return rec, restore
+
+
+def kernel_device_ms(fn, key, n):
+    """Mean device ms a call of fn() of the kernels whose name holds
+    `key`, over n calls under torch.profiler (CUDA activity alone); None
+    where the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if key in e.key and getattr(e, "self_device_time_total", 0) > 0)
+    return us / 1e3 / n if us else None
+
+
+def retrace_twin(name, args, kw, dev, timed=False, n_kernel=20, n_plain=3):
+    """Kernel R (`name` "retrace": closest hit, "retrace_any": any hit) on
+    the captured arguments of one retrace against its plain twin: t, u, v
+    (as bits) and prim, or the occlusion flags, and the overflow mask
+    equal. With timed, both timed (the kernel by events around
+    n_kernel launches, each after a copy of the T-byte overflow mask
+    back, and by its device time), with its bound: the tensor arguments
+    read once and the outputs written once, and RETRACE_OPS x the visits
+    it counts. Returns the entry (shape and visits untimed)."""
+    import torch
+    from tinybvh_tpu_torch.traverse import retrace as rt
+
+    bvh8, aux, rays, t_max, ov0, out0 = args
+    cap = kw.get("cap_factor", 8)
+    any_hit = name == "retrace_any"
+    ov = ov0.clone()
+    if any_hit:
+        out = out0.clone()
+        outs = {"occ": out}
+        plain = (lambda: rt._occluded_plain(bvh8, aux, rays, t_max, ov0,
+                                            out0, cap, "mt"))
+    else:
+        out = type(out0)(**{k: v.clone() for k, v in out0.__dict__.items()})
+        outs = {"hits": out}
+        plain = (lambda: rt._hits_plain(bvh8, aux, rays, t_max, ov0, out0,
+                                        cap, "mt"))
+    on_gpu = dev.type == "cuda"
+
+    def kern():
+        ov.copy_(ov0)
+        return rt._retrace_cuda(bvh8, aux, rays, t_max, ov, **outs)
+
+    if on_gpu:
+        host = kern()
+        sync(dev)
+        visits, leaves, peak = host.tolist()
+        got = (out, ov)
+    else:
+        visits = leaves = peak = 0
+        got = plain()
+    ref_out, ref_ov = plain()
+
+    def bits(h):
+        if any_hit:
+            return (h,)
+        return (h.t.view(torch.int32), h.u.view(torch.int32),
+                h.v.view(torch.int32), h.prim)
+
+    r = dict(max_abs_err=equal_twin(name, bits(got[0]) + (got[1],),
+                                    bits(ref_out) + (ref_ov,)),
+             shape=f"T={ov0.shape[0]}, {int(ov0.sum())} tiles sent, visits "
+                   f"{visits} ({leaves} leaves), deepest stack {peak} of "
+                   f"{rt.STACK}")
+    if not timed:
+        return r
+    t_in = t_max if isinstance(t_max, torch.Tensor) else None
+    ins = (rays.o, rays.d, rays.rd, t_in, bvh8.bounds, bvh8.child,
+           bvh8.leaf_tris, bvh8.leaf_prim, aux.omap, ov0)
+    outs_t = (out,) if any_hit else (out.t, out.u, out.v, out.prim)
+    ops = ((visits - leaves) * RETRACE_OPS["node"]
+           + leaves * RETRACE_OPS["leaf"])
+    r.update(ms=time_ms(kern if on_gpu else plain, dev, n_kernel),
+             plain_ms=time_ms(plain, dev, n_plain),
+             **bound_of(nbytes(ins) + nbytes(outs_t) + ov0.numel(),
+                        {"fp32": ops}), library_ms=None)
+    if on_gpu:
+        r["device_ms"] = kernel_device_ms(kern, "retrace_kernel", n_kernel)
+    return r
+
+
+def retrace_twins(rec, dev, what, timed=False):
+    """retrace_twin on the first captured call of each retrace (closest
+    and any hit); raises where the path sent none to the retrace."""
+    out = {}
+    for name, fn in (("retrace", "retrace_hits"),
+                     ("retrace_any", "retrace_occluded")):
+        if not rec[fn]:
+            raise AssertionError(f"{what}: no {fn} call reached the exact "
+                                 "retrace")
+        args, kw = rec[fn][0]
+        out[name] = retrace_twin(name, args, kw, dev, timed=timed)
+    return out
+
+
 def oracle_subset(R, dev):
     """ORACLE_RAYS rays spread evenly over the image."""
     import torch
@@ -471,10 +621,12 @@ def launch_tables():
     """Every kernel module's launch counters, as the modules register
     them in the package's registry (_trace.LAUNCHES)."""
     from tinybvh_tpu_torch._trace import LAUNCHES
-    from tinybvh_tpu_torch.traverse import frustum_walk, leaf_resolve, packet2
+    from tinybvh_tpu_torch.traverse import (
+        frustum_walk, leaf_resolve, packet2, retrace,
+    )
 
     return tuple(LAUNCHES[m.__name__]
-                 for m in (packet2, leaf_resolve, frustum_walk))
+                 for m in (packet2, leaf_resolve, frustum_walk, retrace))
 
 
 def reset_launches():
@@ -719,10 +871,12 @@ def api_gates(bvh, rays, hits, srays, occ, cutoff, what):
 
 
 def phase_api(bvh, rays, center, extent, build_s, gpu_line):
-    """The main path through the public API (wavefront retrace), then the
-    same two calls with the escalated packet retrace for comparison.
-    Returns the launch counts of exactly the API run and the shadow
-    segments."""
+    """The main path through the public API (the packet path with the
+    exact retrace, kernel R on the card), then the same two calls with
+    the escalated packet retrace for comparison, and kernel R against its
+    twin on the arguments of the API run's two retraces. Returns the
+    launch counts of exactly the API run, the shadow segments and kernel
+    R's entries (closest and any hit)."""
     from tinybvh_tpu_torch.traverse import packet2
     from tinybvh_tpu_torch.tuning import get_tuning
 
@@ -731,8 +885,15 @@ def phase_api(bvh, rays, center, extent, build_s, gpu_line):
     cutoff = 1.0 - 1e-3
 
     reset_launches()
-    hits, occ, shadow, mem = api_calls(bvh, rays, center, extent, cutoff)
-    launches = read_launches(dev, ("cull", "mt_fused"), "the API path")
+    rec, restore = capture_retrace()
+    try:
+        hits, occ, shadow, mem = api_calls(bvh, rays, center, extent,
+                                           cutoff)
+    finally:
+        restore()
+    launches = read_launches(dev, ("cull", "mt_fused", "retrace",
+                                   "retrace_any"), "the API path")
+    kern = retrace_twins(rec, dev, "the API path", timed=True)
     srays = shadow[2]
     hit_rate, agree, ratio, occ_agree = api_gates(bvh, rays, hits, srays,
                                                   occ, cutoff, "api")
@@ -753,14 +914,16 @@ def phase_api(bvh, rays, center, extent, build_s, gpu_line):
           f" s (packet tables alone {tables_s * 1e3:.3f} ms warm), hit rate "
           f"{hit_rate:.4f}, primary {R / prim_s / 1e6:.3f} "
           f"MRays/s, shadow {R / shadow_s / 1e6:.3f} MRays/s (occluded "
-          f"{float(occ.float().mean()):.4f}) with the wavefront retrace "
-          f"(cap {tun.wf_cap_factor}; peak device memory {mem[0]:.3f} / "
+          f"{float(occ.float().mean()):.4f}) with the exact retrace "
+          f"(kernel R; peak device memory {mem[0]:.3f} / "
           f"{mem[1]:.3f} GiB); packet retrace (16384 leaves): primary "
           f"{R / prim_pk / 1e6:.3f} MRays/s, shadow {R / shadow_pk / 1e6:.3f}"
           f" MRays/s; oracle prim-agree {agree:.5f} checksum {ratio:.6f} "
           f"shadow-agree {occ_agree:.5f}, residual overflow 0, launches "
           f"{launches} [{gpu_line}]", flush=True)
-    return launches, shadow
+    for name, r in kern.items():
+        kernel_line(4, name, r, gpu_line)
+    return launches, shadow, kern
 
 
 def phase_grid(tris, dev, W, gpu_line):
@@ -1047,8 +1210,9 @@ RETRACE = dict(max_leaves=64, max_blocks=256, retrace=True,
 
 
 def phase_retrace(bvh, rays, shadow, gpu_line):
-    """The wavefront retrace on the card: a first budget of 64 leaves
-    overflows most tiles; closest hit and the any-hit shadow trace."""
+    """The exact retrace on the card (kernel R, closest and any hit): a
+    first budget of 64 leaves overflows most tiles; closest hit and the
+    any-hit shadow trace."""
     from tinybvh_tpu_torch.core.intersect import brute_force_any
     from tinybvh_tpu_torch.traverse import packet2
 
@@ -1066,9 +1230,15 @@ def phase_retrace(bvh, rays, shadow, gpu_line):
             bvh.bvh8, bvh.packet_aux, light, pts, cutoff, **RETRACE)
 
     reset_launches()
-    hits, ovf, counts = primary()
-    occ, sovf = occluded()
-    launches = read_launches(dev, ("cull", "mt_fused"), "the retrace phase")
+    rec, restore = capture_retrace()
+    try:
+        hits, ovf, counts = primary()
+        occ, sovf = occluded()
+    finally:
+        restore()
+    launches = read_launches(dev, ("cull", "mt_fused", "retrace",
+                                   "retrace_any"), "the retrace phase")
+    twins = retrace_twins(rec, dev, "the retrace phase")
     n_first = int((counts > RETRACE["max_leaves"] // 4).sum())
     if n_first < counts.shape[0] // 2:
         raise AssertionError(f"only {n_first} tiles overflowed the first "
@@ -1078,7 +1248,7 @@ def phase_retrace(bvh, rays, shadow, gpu_line):
                              f"{int(sovf.sum())} shadow rays")
     idx = oracle_subset(R, dev)
     agree, ratio = oracle_check(hits.take(idx), rays.take(idx), bvh.tris,
-                                "wavefront retrace")
+                                "exact retrace")
     occ_ref = brute_force_any(srays.take(idx), bvh.tris, cutoff)
     occ_agree = float((occ[idx] == occ_ref).float().mean())
     if occ_agree < 0.999:
@@ -1087,10 +1257,11 @@ def phase_retrace(bvh, rays, shadow, gpu_line):
     shadow_s = wall_s(occluded, dev)
     print(f"phase 9 retrace: max_leaves {RETRACE['max_leaves']}, "
           f"{n_first} of {counts.shape[0]} tiles overflow the first pass, "
-          f"wavefront cap {RETRACE['wf_cap_factor']}: primary "
+          f"kernel R: primary "
           f"{R / prim_s / 1e6:.3f} MRays/s, shadow {R / shadow_s / 1e6:.3f} "
-          f"MRays/s; oracle prim-agree {agree:.5f} checksum {ratio:.6f} "
-          f"shadow-agree {occ_agree:.5f}, residual overflow 0, launches "
+          f"MRays/s; equal to its twin ({twins['retrace']['shape']}; any "
+          f"hit {twins['retrace_any']['shape']}); oracle prim-agree "
+          f"{agree:.5f} checksum {ratio:.6f} shadow-agree {occ_agree:.5f}, residual overflow 0, launches "
           f"{launches} [{gpu_line}]", flush=True)
 
 
@@ -1469,7 +1640,8 @@ def profile_split(fn, dev):
     (the CPU side's events cost ~20 s around the 68 packet passes of a
     scene16 trace): dict(total=all device ms, ab=kernels A and B's device
     ms (csrc/cull.cu cull_kernel, csrc/mt_fused.cu tile_order and
-    mt_fused_kernel), top=the four other kernels with the most device
+    mt_fused_kernel), r=kernel R's (csrc/retrace.cu retrace_kernel), one
+    of the others, top=the four other kernels with the most device
     time); None where the profiler saw no device time (off the card, or
     records dropped)."""
     import torch
@@ -1495,6 +1667,7 @@ def profile_split(fn, dev):
     return dict(
         total=sum(ms.values()),
         ab=sum(v for k, v in ms.items() if is_ab(k)),
+        r=sum(v for k, v in ms.items() if "retrace_kernel" in k),
         top=sorted(((v, k) for k, v in ms.items() if not is_ab(k)),
                    reverse=True)[:4])
 
@@ -1504,11 +1677,12 @@ def breakdown(fn, dev, wall_ms, retrace=False):
     the device's busy and idle share of wall_ms (an unprofiled call's
     median wall time), kernels A+B, the other kernels and the four with
     the most device time; "not measured" where the profiler saw no
-    device time. With retrace, the packet paths' wavefront retraces
-    (traverse/wavefront.py's intersect_wavefront, which packet2 imports
-    at each retrace, and tlas/packet.py's intersect_tlas_wavefront) are
-    recorded during the call and replayed on the same inputs under the
-    profiler: their device ms, a part of the other kernels'."""
+    device time. With retrace, the wavefront retraces (traverse/
+    wavefront.py's intersect_wavefront and tlas/packet.py's
+    intersect_tlas_wavefront) are recorded during the call and replayed
+    on the same inputs under the profiler: their device ms, a part of the
+    other kernels', beside kernel R's (the packet path's exact retrace on
+    the card)."""
     from tinybvh_tpu_torch.tlas import packet as tpk
     from tinybvh_tpu_torch.traverse import wavefront
 
@@ -1525,7 +1699,8 @@ def breakdown(fn, dev, wall_ms, retrace=False):
     if retrace:
         rt = profile_split(lambda: [real(*args, **kw)
                                     for real, args, kw, _ in rec.calls], dev)
-        extra = (f", of which the retrace ({len(rec.calls)} calls, "
+        extra = (f", of which kernel R {sp['r']:.2f} ms and the wavefront "
+                 f"retrace ({len(rec.calls)} calls, "
                  + ("replayed) not measured" if rt is None else
                     f"replayed) {rt['total']:.2f} ms"))
     del rec
@@ -4438,7 +4613,8 @@ def main(argv=()):
         return 0
     kern, cull_args, mt_args = phase_kernels(bvh, rays, gpu_line)
     phase_occupancy(cull_args, mt_args, gpu_line)
-    launches, shadow = phase_api(*scene, gpu_line)
+    launches, shadow, retrace_kern = phase_api(*scene, gpu_line)
+    kern.update(retrace_kern)
     phase_grid(grid_scene(tris, 4, 4), dev, 640, gpu_line)
     kern.update(phase_kernels_cg(bvh, rays, cull_args, gpu_line))
     print_occupancy(6, OCC6, gpu_line)

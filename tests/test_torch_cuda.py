@@ -12,7 +12,9 @@ index, u, v, prim), C (t, row index), G (block mask), and D, E and F of
 the v1 packet engine (t, row position or packed winner; leaf lists and
 counts), and the probes' kernels H (each gather form) and I (each
 variant of B's tile loop; bf16 within a tolerance, since the order of
-its tensor-core additions is the hardware's). All the fp32 kernels round
+its tensor-core additions is the hardware's), and R, the exact retrace
+(t, u, v and prim, or the occlusion flags, and the overflow mask, against
+the wavefront on the same CUDA inputs). All the fp32 kernels round
 every multiply and add separately in the twins' order. Against the
 brute-force oracle: prim equal, t within rtol = atol = 1e-4.
 """
@@ -2591,3 +2593,352 @@ def test_one_rank_nccl_mesh_matches_intersect_packets2(scene, tmp_path):
         assert mesh.stats["collectives"] == 3
     finally:
         dist.destroy_process_group()
+
+
+# ---- kernel R: the packet path's exact retrace -----------------------------
+
+FAR = 1e30
+
+
+def hand_bvh8(nodes, leaves, device):
+    """A BVH8 built by hand. nodes: one list a row of up to 8 children
+    (lo, hi, word), word >= 0 a node row and -(leaf row + 1) a leaf, the
+    other slots EMPTY_SLOT with the empty box; leaves: one list a row of
+    up to 4 (triangle (3, 3), prim id), padded with zero triangles of
+    prim -1."""
+    from tinybvh_tpu_torch.layouts.mbvh import BVH8, EMPTY_SLOT
+
+    bounds = np.full((len(nodes), 6, 8), FAR, np.float32)
+    bounds[:, 3:] = -FAR
+    child = np.full((len(nodes), 8), EMPTY_SLOT, np.int32)
+    for i, row in enumerate(nodes):
+        for j, (lo, hi, word) in enumerate(row):
+            bounds[i, :3, j], bounds[i, 3:, j], child[i, j] = lo, hi, word
+    lt = np.zeros((len(leaves), 4, 3, 3), np.float32)
+    lp = np.full((len(leaves), 4), -1, np.int32)
+    for i, row in enumerate(leaves):
+        for k, (tri, prim) in enumerate(row):
+            lt[i, k], lp[i, k] = tri, prim
+    return BVH8(*(torch.from_numpy(a).to(device) for a in (
+        bounds.reshape(-1, 48), child, lt, lp)))
+
+
+def _box(*tris):
+    pts = np.concatenate([np.asarray(t, np.float32) for t in tris])
+    return pts.min(0), pts.max(0)
+
+
+def _plate(z, lo=-1.0, hi=3.0):
+    """A triangle in the plane z covering [0, 1]^2 of x and y."""
+    return np.array([[lo, lo, z], [hi + 1, lo, z], [lo, hi + 1, z]],
+                    np.float32)
+
+
+def tie_scene(case, device):
+    """Two triangles of the same geometry, so every ray hits both at one
+    t: "depth", in leaves at depths 1 (row 1, prim 7) and 2 (row 0, prim
+    3); "lane", in lanes 1 (prim 9) and 2 (prim 4) of one leaf, lane 0
+    missed; "row", in leaves 0 (prim 5) and 1 (prim 2) at depth 1.
+    Returns (BVH8, the prim the wavefront's rule keeps)."""
+    tri = _plate(5.0)
+    lo, hi = _box(tri)
+    if case == "depth":
+        nodes = [[(lo, hi, 1), (lo, hi, -2)], [(lo, hi, -1)]]
+        return hand_bvh8(nodes, [[(tri, 3)], [(tri, 7)]], device), 7
+    if case == "lane":
+        off = _plate(9.0, lo=20.0, hi=21.0)
+        lo2, hi2 = _box(tri, off)
+        return hand_bvh8([[(lo2, hi2, -1)]],
+                         [[(off, 1), (tri, 9), (tri, 4)]], device), 9
+    return hand_bvh8([[(lo, hi, -1), (lo, hi, -2)]],
+                     [[(tri, 5)], [(tri, 2)]], device), 5
+
+
+def chain_scene(device, n=70):
+    """A chain of n nodes deeper than MAX_LEVELS: node i holds node i + 1
+    (a box about every ray's origin) and leaf i, one triangle at z = 10 +
+    i; rays from z = 0 up the z axis hit leaf 0 first and walk the whole
+    chain."""
+    big = (np.full(3, -100.0, np.float32), np.full(3, 100.0, np.float32))
+    nodes, leaves = [], []
+    for i in range(n):
+        tri = _plate(10.0 + i)
+        row = [(*_box(tri), -(i + 1))]
+        if i + 1 < n:
+            row.insert(0, (*big, i + 1))
+        nodes.append(row)
+        leaves.append([(tri, i)])
+    return hand_bvh8(nodes, leaves, device)
+
+
+def plate_rays(T, device, z=0.0):
+    """T tiles of rays up the z axis from [0, 1]^2 at height z."""
+    rng = np.random.default_rng(5)
+    o = np.concatenate([rng.uniform(0, 1, (TILE_R * T, 2)),
+                        np.full((TILE_R * T, 1), z)], 1).astype(np.float32)
+    d = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (TILE_R * T, 1))
+    return make_rays(o, d, device=device)
+
+
+TILE_R = 256
+RETRACE_MASKS = ("none", "some", "all")
+
+
+def retrace_inputs(mask, tmax, seed=0):
+    """Camera tiles and tiles of rays from inside the scene in every
+    direction (T = 24), a tile mask and t_max ((R,) f32: "scalar" 1e30,
+    or "per_ray" uniform in [0, 25) with a tenth at 0 and a twentieth
+    below it)."""
+    rng = np.random.default_rng(seed)
+    o, d = _camera_rays(T=16)
+    oi = rng.uniform(1.0, 9.0, (8 * TILE_R, 3)).astype(np.float32)
+    di = rng.normal(size=(8 * TILE_R, 3)).astype(np.float32)
+    rays = make_rays(np.concatenate([o, oi]), np.concatenate([d, di]),
+                     device="cuda")
+    T = rays.o.shape[0] // TILE_R
+    ovf = {"none": np.zeros(T, bool), "all": np.ones(T, bool),
+           "some": np.isin(np.arange(T), [0, 3, 5, 17, 20, 23])}[mask]
+    R = T * TILE_R
+    if tmax == "scalar":
+        tm = np.full(R, FAR, np.float32)
+    else:
+        tm = rng.uniform(0, 25, R).astype(np.float32)
+        tm[rng.random(R) < 0.1] = 0.0
+        tm[rng.random(R) < 0.05] = -1.0
+    return rays, torch.from_numpy(tm).cuda(), torch.from_numpy(ovf).cuda()
+
+
+def _stale_hits(R):
+    """Hits a packet pass might have left, marked so that a ray the
+    retrace should not touch shows it."""
+    from tinybvh_tpu_torch.core.rays import Hits
+
+    def full(v, dt):
+        return torch.full((R,), v, dtype=dt, device="cuda")
+
+    return Hits(t=full(-7.0, torch.float32), u=full(-1.0, torch.float32),
+                v=full(-2.0, torch.float32), prim=full(-5, torch.int32),
+                inst=full(-1, torch.int32))
+
+
+def _tree_depth(child):
+    """The depth of an 8-wide tree below its root row 0: the level of its
+    deepest child entry (node or leaf)."""
+    from tinybvh_tpu_torch.layouts.mbvh import EMPTY_SLOT
+
+    child = child.cpu().numpy()
+    rows, depth = np.zeros(1, np.int64), 0
+    while rows.size:
+        kids = child[rows].reshape(-1)
+        kids = kids[kids != EMPTY_SLOT]
+        if not kids.size:
+            break
+        depth += 1
+        rows = kids[kids >= 0]
+    return depth
+
+
+def retrace_both(bvh8, aux, rays, t_max, ovf, any_hit=False, cutoff=12.0):
+    """Kernel R and its plain twin (the wavefront at a frontier of 256
+    pairs a ray) on the same CUDA inputs: ((out, overflow) of each)."""
+    from tinybvh_tpu_torch.traverse import retrace as rt
+
+    R = rays.o.shape[0]
+    before = dict(rt.LAUNCHES)
+    if any_hit:
+        occ0 = torch.arange(R, device="cuda") % 3 == 0
+        got = rt.retrace_occluded(bvh8, aux, rays, cutoff, ovf.clone(),
+                                  occ0.clone())
+        ref = rt._occluded_plain(bvh8, aux, rays, cutoff, ovf.clone(), occ0,
+                                 256, "mt")
+        assert rt.LAUNCHES["retrace_any"] == before["retrace_any"] + 1
+    else:
+        got = rt.retrace_hits(bvh8, aux, rays, t_max, ovf.clone(),
+                              _stale_hits(R))
+        ref = rt._hits_plain(bvh8, aux, rays, t_max, ovf.clone(),
+                             _stale_hits(R), 256, "mt")
+        assert rt.LAUNCHES["retrace"] == before["retrace"] + 1
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def assert_retrace_equal(got, ref):
+    """Equal overflow masks, and t, u, v bit for bit and prim (or the
+    occlusion flags) on every ray."""
+    (out, ov), (out_r, ov_r) = got, ref
+    assert torch.equal(ov, ov_r)
+    if isinstance(out, torch.Tensor):
+        assert torch.equal(out, out_r)
+        return
+    for k in ("t", "u", "v"):
+        assert torch.equal(getattr(out, k).view(torch.int32),
+                           getattr(out_r, k).view(torch.int32)), k
+    assert torch.equal(out.prim, out_r.prim)
+
+
+@pytest.fixture(scope="module")
+def omap_auxes(scene):
+    """The scene's packet tables without micromaps and with S = 8 and 16
+    (bake_omap of leaf_alpha)."""
+    from tinybvh_tpu_torch.ops.omap import bake_omap, leaf_align
+
+    _, bvh = scene
+    out = {0: bvh.packet_aux}
+    for S in (8, 16):
+        om = bake_omap(bvh.tris.shape[0], leaf_alpha, S=S, device="cuda")
+        out[S] = packet2.build_packet_aux(bvh.bvh8,
+                                          omap=leaf_align(om, bvh.bvh8))
+    return out
+
+
+@pytest.mark.parametrize("mask", RETRACE_MASKS)
+@pytest.mark.parametrize("tmax", ["scalar", "per_ray"])
+@pytest.mark.parametrize("S", [0, 8, 16])
+def test_retrace_kernel_matches_plain(scene, omap_auxes, S, tmax, mask):
+    """Kernel R's closest hits equal the wavefront's on every ray of the
+    flagged tiles (camera rays and rays from inside the scene), the other
+    rays untouched; with and without micromaps, scalar and per-ray t_max,
+    no tile, some and every tile flagged."""
+    _, bvh = scene
+    from tinybvh_tpu_torch.layouts.mbvh import EMPTY_SLOT
+
+    b8 = bvh.bvh8
+    assert bool((b8.leaf_prim < 0).any()) and bool((b8.child == EMPTY_SLOT)
+                                                   .any())
+    rays, tm, ovf = retrace_inputs(mask, tmax)
+    got, ref = retrace_both(b8, omap_auxes[S], rays, tm, ovf)
+    assert_retrace_equal(got, ref)
+    hits = got[0]
+    sent = torch.repeat_interleave(ovf, TILE_R)
+    assert bool((hits.prim[~sent] == -5).all())
+    if mask != "none":
+        assert bool((hits.prim[sent] >= 0).any())
+
+
+@pytest.mark.parametrize("mask", RETRACE_MASKS)
+@pytest.mark.parametrize("S", [0, 8, 16])
+def test_retrace_kernel_any_hit_matches_plain(scene, omap_auxes, S, mask):
+    """Kernel R's occlusion flags equal the any-hit wavefront's, the
+    other rays' flags untouched."""
+    _, bvh = scene
+    rays, _, ovf = retrace_inputs(mask, "scalar")
+    got, ref = retrace_both(bvh.bvh8, omap_auxes[S], rays, None, ovf,
+                            any_hit=True)
+    assert_retrace_equal(got, ref)
+    if mask == "all":
+        assert 0 < int(got[0].sum()) < got[0].shape[0]
+
+
+@pytest.mark.parametrize("case", ["depth", "lane", "row"])
+def test_retrace_kernel_keeps_the_wavefronts_tie_winner(case):
+    """Two triangles at one t: kernel R keeps the wavefront's winner, the
+    shallower leaf, then the lower leaf row and lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    b8, prim = tie_scene(case, "cuda")
+    aux = packet2.build_packet_aux(b8)
+    rays = plate_rays(1, "cuda")
+    tm = torch.full((TILE_R,), FAR, device="cuda")
+    ovf = torch.ones(1, dtype=torch.bool, device="cuda")
+    got, ref = retrace_both(b8, aux, rays, tm, ovf)
+    assert_retrace_equal(got, ref)
+    assert bool((got[0].prim == prim).all())
+
+
+def test_retrace_kernel_flags_a_tree_deeper_than_max_levels():
+    """A chain of 70 nodes: the wavefront leaves pairs at MAX_LEVELS and
+    flags the tiles; kernel R cuts its rays there and flags the same
+    tiles, with the same hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    from tinybvh_tpu_torch.traverse import retrace as rt
+
+    b8 = chain_scene("cuda")
+    aux = packet2.build_packet_aux(b8)
+    assert _tree_depth(b8.child) == 70
+    rays = plate_rays(3, "cuda")
+    tm = torch.full((3 * TILE_R,), FAR, device="cuda")
+    ovf = torch.tensor([True, False, True], device="cuda")
+    got, ref = retrace_both(b8, aux, rays, tm, ovf)
+    assert_retrace_equal(got, ref)
+    assert got[1].tolist() == [True, False, True]
+    assert bool((got[0].prim[:TILE_R] == 0).all())
+
+
+def test_retrace_kernel_counters_reach_the_record(scene):
+    """Inside a traced call kernel R's record says levels 0, the stack's
+    capacity, its deepest stack (at most the capacity) and its visits (at
+    least a root visit a ray sent, the same on a second run); the
+    counters come with no host sync of their own."""
+    from tinybvh_tpu_torch import _trace
+    from tinybvh_tpu_torch.traverse import retrace as rt
+
+    _, bvh = scene
+    aux = bvh.packet_aux
+    rays, tm, ovf = retrace_inputs("all", "scalar")
+    recs = []
+    for _ in range(2):
+        n0 = len(_trace.RECORDS)
+        with _trace._Call("intersect"):
+            _, ov = rt.retrace_hits(bvh.bvh8, aux, rays, tm, ovf.clone(),
+                                    _stale_hits(rays.o.shape[0]))
+            assert int(ov.sum()) == 0      # the API's own overflow read
+        (rec,) = list(_trace.RECORDS)[n0:]
+        recs.append(rec)
+    rec = recs[0]
+    assert rec["retrace"] is True and rec["levels"] == 0
+    assert rec["cap"] == rt.STACK
+    assert 1 < rec["peak"] <= 7 * _tree_depth(bvh.bvh8.child) + 1
+    assert rec["pairs"] >= rays.o.shape[0]
+    assert 0 < rec["leaf_pairs"] < rec["pairs"]
+    assert [recs[1][k] for k in ("pairs", "leaf_pairs", "peak")] == [
+        rec[k] for k in ("pairs", "leaf_pairs", "peak")]
+    assert "_later" not in rec
+
+
+def test_api_retrace_runs_kernel_r(scene):
+    """BVH.intersect and is_occluded on the card send overflowed tiles to
+    kernel R, and is_occluded_packets2's rays from one origin to its any-
+    hit mode; the hits and flags agree with the oracle."""
+    from tinybvh_tpu_torch.traverse import retrace as rt
+
+    _, bvh = scene
+    rays, _, _ = retrace_inputs("all", "scalar")
+    before = dict(rt.LAUNCHES)
+    h = bvh.intersect(rays)
+    occ = bvh.is_occluded(rays, 12.0)
+    assert rt.LAUNCHES["retrace"] >= before["retrace"] + 2
+    ref = brute_force_closest(rays, bvh.tris)
+    assert torch.equal(h.prim, ref.prim)
+    np.testing.assert_allclose(h.t.cpu().numpy(), ref.t.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(occ, (ref.prim >= 0) & (ref.t < 12.0))
+    origin = torch.full((3,), 5.0, device="cuda")
+    points = origin + 3.0 * rays.d / rays.d.norm(dim=1, keepdim=True)
+    occ1, ov1 = packet2.is_occluded_packets2(bvh.bvh8, bvh.packet_aux,
+                                             origin, points, max_leaves=16)
+    assert rt.LAUNCHES["retrace_any"] == before["retrace_any"] + 1
+    assert not bool(ov1.any())
+    ref1 = brute_force_closest(make_rays(origin.expand_as(points),
+                                         points - origin), bvh.tris)
+    assert torch.equal(occ1, (ref1.prim >= 0) & (ref1.t < 1.0 - 1e-3))
+
+
+def test_retrace_kernel_rejects_bad_inputs(scene, monkeypatch):
+    """Wrong dtype, shape or device raise before any launch."""
+    from tinybvh_tpu_torch.traverse import retrace as rt
+
+    _, bvh = scene
+    rays, tm, ovf = retrace_inputs("all", "scalar")
+    R = rays.o.shape[0]
+    before = dict(rt.LAUNCHES)
+    with pytest.raises(TypeError):
+        rt.retrace_hits(bvh.bvh8, bvh.packet_aux, rays, tm.double(), ovf,
+                        _stale_hits(R))
+    with pytest.raises(ValueError):
+        rt.retrace_hits(bvh.bvh8, bvh.packet_aux, rays, tm[:-1], ovf,
+                        _stale_hits(R))
+    with pytest.raises(ValueError):
+        rt.retrace_hits(bvh.bvh8, bvh.packet_aux, rays, tm.cpu(), ovf,
+                        _stale_hits(R))
+    assert rt.LAUNCHES == before

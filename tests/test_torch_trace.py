@@ -20,7 +20,7 @@ import tinybvh_tpu_torch as tt  # noqa: E402
 from tinybvh_tpu_torch import _trace  # noqa: E402
 from tinybvh_tpu_torch.io.loaders import random_tris  # noqa: E402
 from tinybvh_tpu_torch.traverse import (  # noqa: E402
-    frustum_walk, leaf_resolve, packet2, wavefront,
+    frustum_walk, leaf_resolve, packet2, retrace, wavefront,
 )
 from tinybvh_tpu_torch.traverse.packet import (  # noqa: E402
     TILE, sort_rays_coherent,
@@ -207,7 +207,8 @@ def test_record_stamps_lie_inside_their_spans(bvh):
         _assert_stamps_inside_their_spans(recs, prof)
 
 
-@pytest.mark.parametrize("mod", [packet2, leaf_resolve, frustum_walk])
+@pytest.mark.parametrize("mod", [packet2, leaf_resolve, frustum_walk,
+                                 retrace])
 def test_launch_tables_are_registered_and_count(mod, monkeypatch):
     """A launch counts once in its module's table; a launch a CUDA graph
     captures does not (the CPU build has no graphs: the capture test is
@@ -242,8 +243,10 @@ def test_probe_launch_tables_keep_their_names():
 def test_smoke_reads_the_launch_registry():
     import chip_smoke
 
-    assert all(a is b for a, b in zip(chip_smoke.launch_tables(), (
-        packet2.LAUNCHES, leaf_resolve.LAUNCHES, frustum_walk.LAUNCHES)))
+    tables = (packet2.LAUNCHES, leaf_resolve.LAUNCHES, frustum_walk.LAUNCHES,
+              retrace.LAUNCHES)
+    assert len(chip_smoke.launch_tables()) == len(tables)
+    assert all(a is b for a, b in zip(chip_smoke.launch_tables(), tables))
 
 
 def test_overflow_read_runs_the_same_ops_traced_or_not(monkeypatch):

@@ -4,7 +4,8 @@ The JAX package `tinybvh_tpu` is the reference; this package imports
 torch and never jax. Ported so far: `BVH(tris).intersect(rays)` /
 `.is_occluded(...)` with its engines: the packet2 pipeline
 (traverse/packet2.py, four hand-written Hopper kernels in csrc/ and
-their plain PyTorch twins) with its exact wavefront retrace, the
+their plain PyTorch twins) with its exact retrace (traverse/retrace.py:
+kernel R on the card, the wavefront as its twin), the
 wavefront engine (traverse/wavefront.py), the per-ray-stack lockstep
 engine (traverse/wide.py), the rayloop engine (traverse/rayloop.py) and
 the BVH2 engines (traverse/stack.py), with the Möller–Trumbore,

@@ -90,6 +90,7 @@ def find_nvcc() -> str:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # cull.cu
     "tbvh_cull": [_P, _P, _P, _P, _P, _P, _P,
@@ -134,6 +135,9 @@ _SIGNATURES = {
     "tbvh_gather_sum_occupancy": [_P],
     "tbvh_gather_onehot": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tbvh_gather_onehot_occupancy": [_P],
+    # retrace.cu
+    "tbvh_retrace": [_P] * 4 + [_F] + [_P] * 12 + [_I, _I, _I, _P],
+    "tbvh_retrace_occupancy": [_P],
     # mt_ablation.cu
     "tbvh_mt_ablation": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],

@@ -2,7 +2,9 @@
 launches.
 
 The traced path: `api.py::BVH.intersect` / `is_occluded` ->
-`_packet_trace` -> `traverse/packet2.py` -> `traverse/wavefront.py`.
+`_packet_trace` -> `traverse/packet2.py` -> `traverse/retrace.py`, whose
+exact retrace runs kernel R (`csrc/retrace.cu`) on the card, and the
+wavefront (`traverse/wavefront.py`) as its plain twin elsewhere.
 Spans and counters are recorded only while a torch profiler runs, which
 `api_call` checks once per API call. A span is then a
 `torch.profiler.record_function("tbvh.<name>")` range, so it lands in
@@ -16,7 +18,7 @@ shared null context. Spans, nested:
       tbvh.cull     the tile frusta, kernel A, the block order and the
                     key decode
       tbvh.resolve  kernel B's launcher and the hit assembly
-      tbvh.retrace  the overflow read, the wavefront retrace and the
+      tbvh.retrace  the overflow read and the exact retrace with the
                     merge of its hits
 
 Each traced API call appends one record (a dict) to `RECORDS`:
@@ -27,19 +29,24 @@ Each traced API call appends one record (a dict) to `RECORDS`:
     span      the innermost tbvh.* span open at `stamp_ns`
     rays      rays traced by the packet path (absent on other engines)
     sent      of them, rays of overflowed tiles, sent to the retrace
-    cap       the wavefront's frontier cap in pairs: its cap_factor
-              (wf_cap_factor on the packet path) x rays
-    retrace   True where the wavefront ran as the packet path's retrace
-    levels, pairs, peak
-              the wavefront's levels (a host sync each), its pairs
-              summed over levels, and its largest level frontier
-              before the cap clips it
+    retrace   True where the exact retrace ran (else the wavefront ran
+              as the API's engine)
+    levels, pairs, peak, cap
+              kernel R: 0 (no level loop), its node and leaf visits over
+              the rays sent, the deepest stack a ray reached and the
+              stack's capacity (and leaf_pairs, the leaf visits of its
+              pairs); the wavefront: its levels (a host sync
+              each), its pairs summed over levels, its largest level
+              frontier before the cap clips it, and that cap in pairs
+              (cap_factor, wf_cap_factor on the packet path, x rays)
 
 Without a profiler no record is kept, and neither spans nor counters
 add a host sync, an allocation or a launch. With one, neither adds a
 sync or a launch: the counters are host integers the traced code holds
 anyway (packet2.py::_any_overflow counts the tile mask it copies to the
-host in either case).
+host in either case), or a device's counters that the code copies to the
+host asynchronously in either case, read when the call returns
+(`note_later`).
 
 `LAUNCHES` maps a module's name to its table of kernel launches (the
 module's own `LAUNCHES`, registered by `launch_table`), which
@@ -117,6 +124,10 @@ class _Call(_Span):
         super().__exit__(*exc)
         _local.rec = None
         del rec["_open"]
+        for names, host, done in rec.pop("_later", ()):
+            if not done.query():    # the API's own read waited for it
+                done.synchronize()
+            rec.update(zip(names, host.tolist()))
         RECORDS.append(rec)
         return False
 
@@ -148,6 +159,19 @@ def span(name: str):
     """The span tbvh.<name> inside a traced API call, else the shared
     null context."""
     return _NULL if record() is None else _Span(name)
+
+
+def note_later(host: torch.Tensor, names) -> None:
+    """Counters that the current stream is copying into the pinned host
+    tensor `host`: written into the traced API call's record under
+    `names` when the call returns; nothing outside a traced call. A
+    packet-path call ends on a host read of its overflow mask, which waits
+    for the copy, so reading them adds no host sync."""
+    rec = record()
+    if rec is not None:
+        done = torch.cuda.Event()
+        done.record()
+        rec.setdefault("_later", []).append((names, host, done))
 
 
 def note(**counters) -> None:

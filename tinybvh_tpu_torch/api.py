@@ -5,13 +5,14 @@ the TLAS build + IntersectTLAS, tiny_bvh.h:2221-2259, 3306-3380).
 Builders: the native SAH build ("sah" at 8 bins), the numpy one ("sah"
 at other bin counts, "median"), the LBVH on the device ("lbvh").
 Layouts: the 8-wide BVH8 (leaves of at most 4 triangles) or, for layout
-!= "bvh8" or larger leaves, the BVH2 alone. Engines over the BVH8: the packet2 trace with the wavefront
-retrace (on a CUDA device it runs the hand-written kernels; on the CPU
-their plain twins), the wavefront, the per-ray-stack lockstep and the
+!= "bvh8" or larger leaves, the BVH2 alone. Engines over the BVH8: the packet2 trace with the exact
+retrace (on a CUDA device it runs the hand-written kernels, kernel R
+for the retrace; on the CPU their plain twins, the wavefront for the
+retrace), the wavefront, the per-ray-stack lockstep and the
 rayloop engine; over the BVH2: the lockstep BVH2 engine. `BVH.refit`
 (the BVH2 refit and a re-collapse, on the BVH's device); `TLAS` over
 instanced BLASes (the two-level wavefront, then the two-level lockstep
-engine). An overflow the wavefront retrace cannot repair raises
+engine). An overflow the exact retrace cannot repair raises
 RuntimeError: approximate hits are never returned silently."""
 
 from __future__ import annotations
@@ -223,7 +224,7 @@ class BVH:
 
     def _packet_trace(self, rays: Rays, t_max, any_hit: bool):
         """(R,) hits, or with any_hit (R,) occlusion flags, from the packet
-        path with the wavefront retrace. Rays sharing one origin (shadow
+        path with the exact retrace. Rays sharing one origin (shadow
         rays traced from a light) are bundled by direction; others by the
         coherence sort."""
         from tinybvh_tpu_torch.traverse.packet2 import (
@@ -248,9 +249,10 @@ class BVH:
         n_ovf = int(ovf.sum())
         if n_ovf:
             raise RuntimeError(
-                f"{n_ovf} rays overflowed the wavefront retrace's frontier "
-                f"({tun.wf_cap_factor} pairs per ray); their hits would not "
-                "be exact")
+                f"{n_ovf} rays overflowed the exact retrace (kernel R: a "
+                "tree deeper than 64 levels; the wavefront: its frontier "
+                f"of {tun.wf_cap_factor} pairs per ray); their hits would "
+                "not be exact")
         return out
 
     @staticmethod
@@ -275,8 +277,8 @@ class BVH:
                       scalar t_max, else the wavefront; the BVH2 engine
                       without a BVH8;
           "packets"   the packet2 pipeline with coherence sort and the
-                      wavefront retrace (R % 256 == 0; ValueError without
-                      a BVH8);
+                      exact retrace, kernel R on the card (R % 256 == 0;
+                      ValueError without a BVH8);
           "wavefront" level-synchronous BFS; falls back to "lockstep"
                       when its frontier overflows;
           "lockstep"  per-ray stacks over the BVH8 (traverse.wide);

@@ -264,8 +264,9 @@ def trace_sharded(mesh: Mesh, bvh_stack, packed_stack, gid_stack, rays: Rays,
 
 
 def _packets(bvh8, aux, rays, t_max, max_leaves, max_blocks, wf_cap_factor):
-    """intersect_packets2 with its wavefront retrace (frontier: the
-    device's tuning row unless given) and the per-ray overflow flags."""
+    """intersect_packets2 with its exact retrace (kernel R on the card;
+    elsewhere the wavefront, its frontier the device's tuning row unless
+    given) and the per-ray overflow flags."""
     from tinybvh_tpu_torch.traverse.packet2 import TILE, intersect_packets2
     from tinybvh_tpu_torch.tuning import get_tuning
 
@@ -283,14 +284,15 @@ def trace_packets_dp(mesh: Mesh, bvh8, aux, rays: Rays, t_max=BVH_FAR,
     """Data-parallel trace with the packet2 engine: the BVH8 and its
     packet tables replicated, tile-ordered rays split over 'rays' (each
     rank's block a multiple of 256 rays, else ValueError), each rank
-    running intersect_packets2 with its wavefront retrace (kernels A and
-    B on the card). No communication until the final gather (≙ the
+    running intersect_packets2 with its exact retrace (kernels A, B and R
+    on the card). No communication until the final gather (≙ the
     reference's tile threads calling BVH8_CPU::Intersect,
     tiny_bvh_anim.cpp:194-205). t_max: a scalar, as in JAX. Returns the
     whole batch's Hits on every rank; raises RuntimeError on every rank
-    where a tile's retrace overflowed its frontier of wf_cap_factor pairs
-    a ray (default: the device's tuning row; JAX's returns those tiles'
-    hits as they are)."""
+    where a tile stayed flagged after the retrace: on the card a ray cut
+    at MAX_LEVELS (64) of tree depth, elsewhere the wavefront's frontier
+    past wf_cap_factor pairs a ray (default: the device's tuning row;
+    JAX's returns those tiles' hits as they are)."""
     from tinybvh_tpu_torch.traverse.packet2 import TILE
 
     r = _local_rays(mesh, rays, TILE)

@@ -16,10 +16,12 @@ bounce sampling.
 
 Traversal: the wavefront engine (traverse/wavefront.py), or with `aux=`
 the packet2 engine (traverse/packet2.py: kernels A and B on the card)
-for every extension and shadow pass, with its exact wavefront retrace.
-The budgets and the retrace's frontier cap come from the device's tuning
-row. Every overflow flag is ORed on the device and returned once, as a
-0-dim bool tensor: True means some paths were truncated.
+for every extension and shadow pass, with its exact retrace
+(traverse/retrace.py: kernel R on the card, no frontier cap; the
+wavefront elsewhere). The budgets and the wavefront's frontier cap come
+from the device's tuning row. Every overflow flag is ORed on the device
+and returned once, as a 0-dim bool tensor: True means some paths were
+truncated.
 
 Random numbers: a `Sampler` draws them, in one place per bounce (light
 index, r1-r4) and one per sample (the pixel jitter of `render`), from an
@@ -277,8 +279,8 @@ def trace_paths(bvh8, scene, rays: Rays, sampler: Sampler,
 
     aux: optional traverse.packet2.PacketAux; with R a multiple of 256 it
     routes every traversal through the packet2 engine (kernels A and B on
-    the card), each with the exact wavefront retrace of overflowed
-    tiles."""
+    the card), each with the exact retrace of overflowed tiles (kernel R
+    on the card)."""
     R = rays.o.shape[0]
     dev = rays.o.device
     if aux is not None and R % TILE == 0:

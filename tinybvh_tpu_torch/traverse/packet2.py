@@ -27,10 +27,12 @@ Inside an API call traced by a torch profiler, the pipeline's steps are
 the spans tbvh.sort, tbvh.cull, tbvh.resolve and tbvh.retrace, and the
 overflow read counts the rays sent to the retrace (_trace.py).
 
-Everything around the kernels (tile frusta, the coarse block tier, the
-worklist compaction, block ordering or the full key sort, offset
-pre-decode or the row gather, hit assembly, the packet and wavefront
-retraces) is plain torch, as it is XLA in the JAX package.
+The exact retrace (retrace=True / "wavefront") is traverse/retrace.py:
+kernel R on the card for a BVH8 and the "mt" leaf test, the wavefront
+engine as its plain twin. Everything else around the kernels (tile
+frusta, the coarse block tier, the worklist compaction, block ordering
+or the full key sort, offset pre-decode or the row gather, hit assembly,
+the packet retrace) is plain torch, as it is XLA in the JAX package.
 
 Opacity micromaps (build_packet_aux(omap=)) ride in the rows' padding
 lanes, and kernel B tests them in its own instantiation (LAUNCHES
@@ -92,7 +94,7 @@ class PacketAux:
     the dead-key sentinel segment); center (3,) subtracted from the rows.
     With micromaps (omap_s = S > 0) each triangle's S x S cell bits fill
     nw = ceil(S^2 / 16) words, 16 bits to an f32 word, and omap keeps the
-    raw (L, 4, S, S) bool table for the wavefront retrace."""
+    raw (L, 4, S, S) bool table for the exact retrace."""
 
     leaf_lo: torch.Tensor
     leaf_hi: torch.Tensor
@@ -893,10 +895,11 @@ def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
 
     retrace, for tiles whose cull survivors exceeded the max_leaves
     budget (their first-pass hits may miss geometry):
-      * True / "wavefront": re-trace them with the wavefront engine
-        (frontier wf_cap_factor pairs per ray) with t_max = 0 on every
-        other ray; the mask then flags only tiles whose wavefront pass
-        itself overflowed;
+      * True / "wavefront": re-trace their rays exactly
+        (retrace.py::retrace_hits: kernel R on the card, with no
+        frontier cap; else the wavefront engine, frontier wf_cap_factor
+        pairs per ray); the mask then flags only tiles whose retrace
+        may still be inexact;
       * "packet": an escalated second packet pass (retrace_ml keys,
         default 4*max_leaves; retrace_blocks worklist depth); the mask
         then flags only tiles that overflow that budget too;
@@ -1054,28 +1057,27 @@ def intersect_packets2(bvh8: BVH8, aux: PacketAux, rays: Rays,
     if retrace:
         with _trace.span("retrace"):
             if _any_overflow(overflow):
-                ov_ray = torch.repeat_interleave(overflow, TILE)
-                t_ov = torch.where(ov_ray, tmax_r, 0.0)
                 if retrace == "packet":
+                    ov_ray = torch.repeat_interleave(overflow, TILE)
                     h2, ov2 = intersect_packets2(
                         bvh8, aux, rays,
-                        max_leaves=retrace_ml or 4 * max_leaves, t_max=t_ov,
+                        max_leaves=retrace_ml or 4 * max_leaves,
+                        t_max=torch.where(ov_ray, tmax_r, 0.0),
                         retrace=False, sort=sort, fused=fused,
                         max_blocks=retrace_blocks or max_blocks,
                         any_hit=any_hit, tri_blk=tri_blk,
                         span_mult=span_mult)
+                    hits = _merge(ov_ray, h2, hits)
+                    # only tiles that may still be inexact stay flagged
+                    overflow = overflow & ov2
                 else:
-                    from tinybvh_tpu_torch.traverse.wavefront import (
-                        intersect_wavefront,
+                    from tinybvh_tpu_torch.traverse.retrace import (
+                        retrace_hits,
                     )
 
-                    _trace.note(retrace=True)
-                    h2, ov2 = intersect_wavefront(bvh8, rays, t_max=t_ov,
-                                                  cap_factor=wf_cap_factor,
-                                                  omap=aux.omap)
-                hits = _merge(ov_ray, h2, hits)
-                # only tiles that may still be inexact stay flagged
-                overflow = overflow & ov2
+                    hits, overflow = retrace_hits(
+                        bvh8, aux, rays, tmax_r.contiguous(), overflow, hits,
+                        cap_factor=wf_cap_factor)
     if return_counts:
         return hits, overflow, counts
     return hits, overflow
@@ -1109,9 +1111,9 @@ def _occluded(bvh8: BVH8, aux: PacketAux, rays: Rays, cutoff: float,
               retrace=True, wf_cap_factor: int = 8, **kw):
     """Any hit in (0, cutoff) of rays in tile order (≙ the body of JAX
     is_occluded_packets2): the packet pass with the packet retrace, or
-    none, then with retrace True / "wavefront" the any-hit wavefront on
-    the overflowed tiles. kw as intersect_packets2. Returns ((R,)
-    occluded, (T,) overflow)."""
+    none, then with retrace True / "wavefront" the any-hit exact retrace
+    of the overflowed tiles (retrace.py::retrace_occluded). kw as
+    intersect_packets2. Returns ((R,) occluded, (T,) overflow)."""
     _check_retrace(retrace)
     hits, overflow = intersect_packets2(
         bvh8, aux, rays, t_max=cutoff, any_hit=True,
@@ -1121,17 +1123,13 @@ def _occluded(bvh8: BVH8, aux: PacketAux, rays: Rays, cutoff: float,
     if retrace and retrace != "packet":
         with _trace.span("retrace"):
             if _any_overflow(overflow):
-                from tinybvh_tpu_torch.traverse.wavefront import (
-                    intersect_wavefront,
+                from tinybvh_tpu_torch.traverse.retrace import (
+                    retrace_occluded,
                 )
 
-                ov_ray = torch.repeat_interleave(overflow, TILE)
-                _trace.note(retrace=True)
-                _, wf_occ, wf_ovf = intersect_wavefront(
-                    bvh8, rays, t_max=torch.where(ov_ray, cutoff, 0.0),
-                    cap_factor=wf_cap_factor, any_hit=True, omap=aux.omap)
-                occ = torch.where(ov_ray, wf_occ, occ)
-                overflow = overflow & wf_ovf
+                occ, overflow = retrace_occluded(
+                    bvh8, aux, rays, cutoff, overflow, occ,
+                    cap_factor=wf_cap_factor)
     return occ, overflow
 
 
@@ -1145,7 +1143,7 @@ def is_occluded_packets2(bvh8: BVH8, aux: PacketAux, origin, points,
     points in tile order (≙ IsOccluded, tiny_bvh.h:3382-3453). t is the
     segment fraction. Returns ((R,) occluded, (T,) overflow); retrace
     modes as in intersect_packets2 (True / "wavefront": the any-hit
-    wavefront)."""
+    exact retrace)."""
     d = points - origin[None, :]
     rays = make_rays(origin[None, :].expand_as(d), d)
     return _occluded(bvh8, aux, rays, cutoff, retrace=retrace,

@@ -5,8 +5,12 @@ BVH8_CPU::Intersect, tiny_bvh.h:7188).
 The whole frontier of (ray, node) pairs advances one tree level per
 iteration, so the loop runs about tree-depth times with large dense
 ops. The JAX package leaves this engine to XLA and has no kernel for
-it; here it is plain torch. It is the packet trace's exact retrace and
-the API's engine for batches the packet path does not take.
+it; here it is plain torch. It is the API's engine for batches the
+packet path does not take (engine="wavefront", render/pathtracer.py's
+wavefront route), and the plain twin of the packet path's exact retrace
+(traverse/retrace.py), which runs it on CPU tensors, a BVH8Q and the
+"watertight" and "baldwin" leaf tests; on the card that retrace is
+kernel R (csrc/retrace.cu), one thread a ray, with no frontier cap.
 
 Mirrored level by level, so that hits equal the JAX engine's on every
 ray, ties included: the frontier cap of cap_factor*R pairs, the strict

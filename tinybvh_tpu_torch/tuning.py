@@ -20,7 +20,7 @@ from tinybvh_tpu_torch.core.rays import default_device
 class Tuning:
     max_leaves: int      # per-tile leaf budget of the first cull pass
     max_blocks: int      # cull worklist depth per tile group
-    wf_cap_factor: int   # wavefront retrace frontier: pairs per ray
+    wf_cap_factor: int   # wavefront frontier: pairs per ray
     measured: bool = True
 
 
