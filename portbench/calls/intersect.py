@@ -1,7 +1,7 @@
 """Closest hit: `BVH.intersect(rays, t_max)`.
 
 Kept from each call: t and prim of the sampled rays. Judged against the
-brute-force reference on the same rays:
+scene's plain reference on the same rays (prim: its hit id):
   prim_mismatch_pct  share of the sampled rays, in %, whose prim is not
                      the reference's (a hit where it misses, a miss where
                      it hits, or another triangle);
@@ -23,8 +23,6 @@ from types import SimpleNamespace
 
 import torch
 
-from harness import reference
-
 NUMBERS = ("prim_mismatch_pct", "t_err_max", "t_gap_max")
 
 
@@ -38,9 +36,9 @@ def keep(out, idx):
     return torch.stack([out.t[idx], out.prim[idx].to(torch.float32)], 1)
 
 
-def reference_answers(tris, o, d, t_max, precision):
-    t, prim = reference.closest(tris, o, d,
-                                1e30 if t_max is None else t_max, precision)
+def reference_answers(scene, o, d, t_max, precision):
+    t, prim = scene.closest(o, d, 1e30 if t_max is None else t_max,
+                            precision)
     dn = torch.linalg.vector_norm(d, dim=1)
     far = torch.linalg.vector_norm(o + torch.where(prim >= 0, t, 0.0)[:, None]
                                    * d, dim=1)

@@ -1,15 +1,13 @@
 """Any hit: `BVH.is_occluded(rays, t_max)`.
 
 Kept from each call: the occlusion flag of the sampled rays. Judged
-against the brute-force reference on the same rays:
+against the scene's plain reference on the same rays:
   occ_mismatch_pct  share of the sampled rays, in %, whose flag is not
                     the reference's."""
 
 from __future__ import annotations
 
 import torch
-
-from harness import reference
 
 NUMBERS = ("occ_mismatch_pct",)
 
@@ -22,9 +20,8 @@ def keep(out, idx):
     return out[idx].to(torch.float32)[:, None]
 
 
-def reference_answers(tris, o, d, t_max, precision):
-    return reference.occluded(tris, o, d, t_max,
-                              precision).to(torch.float32)[:, None]
+def reference_answers(scene, o, d, t_max, precision):
+    return scene.occluded(o, d, t_max, precision).to(torch.float32)[:, None]
 
 
 def from_answers(ans):

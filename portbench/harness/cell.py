@@ -1,9 +1,10 @@
 """One run of one cell: set-up, the measured window, the output check.
 
-Set-up makes the scene and the ray batches from the seed (shadow and
-bounce batches from the plain reference's primary hits, whose time
-set-up leaves out), builds the program's BVH, and calls it once on every
-batch. The window is a closed
+Set-up makes the scene (of the kind the configuration names,
+scenes/<scene>.py) and the ray batches from the seed (shadow and bounce
+batches from the plain reference's primary hits, whose time set-up
+leaves out), builds the object the program is handed, and calls it once
+on every batch. The window is a closed
 loop of one caller: each call is issued when the last has returned, on
 the batches in turn, until `seconds` have passed; the call begun before
 the deadline ends the window. After each call the answers of a few rays
@@ -24,9 +25,8 @@ import torch
 
 from harness import guard
 from harness import trace as trace_mod
-from harness.scene import make_scene
-from harness.spec import Cell, load_module
-from harness.traffic import derive, make_batches, scene_box
+from harness.spec import Cell, load_module, load_scene
+from harness.traffic import derive, make_batches
 
 
 ROWS = 4096     # rows of the table of kept positions
@@ -35,6 +35,7 @@ ROWS = 4096     # rows of the table of kept positions
 @dataclass
 class Window:
     latencies: list = field(default_factory=list)    # seconds, every call
+    device_busy_s: float = 0.0   # the device running the window's calls
     work: int = 0            # rays of the completed calls
     completed: int = 0
     attempted: int = 0
@@ -60,7 +61,7 @@ def forbidden_exit(when: str) -> None:
         raise SystemExit(3)
 
 
-def control(calls, tris, raw_o, raw_d, t_max, precision="tf32"):
+def control(calls, scene, raw_o, raw_d, t_max, precision="tf32"):
     """The control of the output check, as a fault: the plain reference
     computed in `precision` put in the program's place. Each batch's
     answers are worked out once, at its first call, and handed back at
@@ -71,7 +72,7 @@ def control(calls, tris, raw_o, raw_d, t_max, precision="tf32"):
         def f(b):
             if b not in memo:
                 memo[b] = calls.from_answers(calls.reference_answers(
-                    tris, raw_o[b], raw_d[b], t_max, precision))
+                    scene, raw_o[b], raw_d[b], t_max, precision))
             return memo[b]
         return f
     return wrap
@@ -92,15 +93,14 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     calls = load_module(cell.base, "calls", trf["call"])
     t_max = trf.get("t_max")
 
-    tris_np = make_scene(cell.config, seed)
-    lo, hi = scene_box(tris_np)
-    tris = torch.from_numpy(tris_np).to(dev)     # the benchmark's own copy
-    raw_o, raw_d, ref_s = make_batches(trf, cell.base, tris, lo, hi, seed)
+    # the benchmark's own copy of the scene, beside the program's object
+    scene = load_scene(cell.config, seed, dev, cell.base)
+    raw_o, raw_d, ref_s = make_batches(trf, cell.base, scene, seed)
     P, R = raw_o.shape[:2]
     if dev.type == "cuda":     # the reference's blocks are not the program's
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    bvh = tb.BVH(tris_np, device=dev, **cell.config.get("build", {}))
+    prog = scene.program()
     pool = [tb.make_rays(o.clone(), d.clone(), device=dev)
             for o, d in zip(raw_o, raw_d)]
     # the rays whose answers call k keeps: row k % ROWS of the table
@@ -110,10 +110,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
                               generator=gen, device=dev)
 
     def timed(b):
-        return calls.call(bvh, pool[b], t_max)
+        return calls.call(prog, pool[b], t_max)
 
     if control_precision:
-        fault = control(calls, tris, raw_o, raw_d, t_max, control_precision)
+        fault = control(calls, scene, raw_o, raw_d, t_max, control_precision)
     fn = fault(timed) if fault else timed
     for b in range(P):                         # warm-up: every batch once
         fn(b)
@@ -123,19 +123,23 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     # set-up leaves out the plain reference's part in making the traffic
     win = Window(setup_s=time.perf_counter() - t_start - ref_s)
     say(f"setup {win.setup_s:.3f} s (and {ref_s:.3f} s of the plain "
-        f"reference making the traffic): {tris_np.shape[0]} triangles, "
+        f"reference making the traffic): {scene.summary}, "
         f"{P} batches of {R} rays")
 
     kept, held, out = [], [], None   # held: (batch, row, answer) to keep
     tracer = trace_mod.Tracer(dev.type, seconds / 3.0) if trace else None
     mem0 = _alloc_counts(dev)
     gc0 = [g["collections"] for g in gc.get_stats()]
+    busy = (trace_mod.DeviceBusy() if dev.type == "cuda" and not trace
+            else None)
     w0 = time.perf_counter()
     deadline = w0 + seconds
     k = 0
     while time.perf_counter() < deadline:
         if tracer:
             tracer.before(time.perf_counter() - w0)
+        if busy:
+            busy.before()
         b = k % P
         t0 = time.perf_counter()
         try:
@@ -161,16 +165,22 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         k += 1
     if tracer:
         tracer.finish()
+    if busy:
+        busy.finish()
     kept += [(hb, hr, calls.keep(o, positions[hr])) for hb, hr, o in held]
     del held
     _sync(dev)
     win.seconds = time.perf_counter() - w0
     report_window(win, P, dev, mem0, gc0)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if busy:
+        win.device_busy_s = busy.busy_s()
+    elif dev.type != "cuda":   # the host is the device: the calls' own time
+        win.device_busy_s = sum(win.latencies)
     forbidden_exit("after the window")
 
     # the program's state goes before the reference runs
-    del bvh, pool, out, fn, timed, fault
+    del prog, pool, out, fn, timed, fault
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -187,12 +197,14 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
     if trace:
         tr = tracer.trace()
+        for m in cell.per_layer:    # a reader of the window, or the trace
+            mod = load_module(cell.base, "metrics", m["name"])
+            v = (mod.read_window(win) if hasattr(mod, "read_window")
+                 else mod.read(tr) if tr is not None else None)
+            if v is not None:
+                result["metrics"][m["name"]] = {"value": v,
+                                                "unit": m["unit"]}
         if tr is not None:
-            for m in cell.per_layer:
-                v = load_module(cell.base, "metrics", m["name"]).read(tr)
-                if v is not None:
-                    result["metrics"][m["name"]] = {"value": v,
-                                                    "unit": m["unit"]}
             result["device"]["busy_s"] = tr.busy_us() / 1e6
             result["device"]["window_s"] = tr.window_us / 1e6
             result["breakdown"] = trace_mod.breakdown(tr)
@@ -204,7 +216,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
                 result["metrics"][m["name"]] = {"value": v,
                                                 "unit": m["unit"]}
 
-    numbers = judge(calls, tris, raw_o, raw_d, positions, kept, t_max,
+    numbers = judge(calls, scene, raw_o, raw_d, positions, kept, t_max,
                     int(chk["sample"]), derive(seed, 2))
     limits = chk["limits"]        # the numbers this cell compares
     compared = [n for n in calls.NUMBERS if n in limits]
@@ -236,7 +248,8 @@ def _alloc_counts(dev):
 
 def report_window(win, P, dev, mem0, gc0):
     """Standard error: each batch's median and longest call, the calls
-    that took over 1.5 times their batch's median, and what the caching
+    that took over 1.5 times their batch's median, the time all calls
+    took over their batch's median, and what the caching
     allocator and the garbage collector did in the window."""
     lat = win.latencies
     med = [sorted(lat[i::P])[len(lat[i::P]) // 2] if lat[i::P] else 0.0
@@ -246,7 +259,9 @@ def report_window(win, P, dev, mem0, gc0):
         for i in range(P) if lat[i::P]))
     slow = [(k, round(1e3 * x, 1)) for k, x in enumerate(lat)
             if x > 1.5 * med[k % P]]
-    say(f"slow calls {len(slow)} of {len(lat)}: {slow[:40]}")
+    say(f"slow calls {len(slow)} of {len(lat)}: {slow[:40]}; in all "
+        f"{sum(lat) - sum(med[k % P] for k in range(len(lat))):.3f} s over "
+        f"their batch's median")
     mem1 = _alloc_counts(dev)
     gc1 = [g["collections"] for g in gc.get_stats()]
     say("in the window: allocator " + str({k: mem1[k] - mem0[k]
@@ -254,7 +269,7 @@ def report_window(win, P, dev, mem0, gc0):
         + f", gc collections {[b - a for a, b in zip(gc0, gc1)]}")
 
 
-def judge(calls, tris, raw_o, raw_d, positions, kept, t_max, sample,
+def judge(calls, scene, raw_o, raw_d, positions, kept, t_max, sample,
           seed):
     """The call's numbers over a sample, drawn from the seed, of the kept
     answers, against the plain reference in float32; None where none was
@@ -270,5 +285,5 @@ def judge(calls, tris, raw_o, raw_d, positions, kept, t_max, sample,
     call = rows // per_call
     pos = positions[row[call], rows % per_call]
     o, d = raw_o[b[call], pos], raw_d[b[call], pos]
-    ref = calls.reference_answers(tris, o, d, t_max, "fp32")
+    ref = calls.reference_answers(scene, o, d, t_max, "fp32")
     return calls.judge(got[rows], ref)

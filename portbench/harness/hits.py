@@ -13,7 +13,6 @@ from dataclasses import dataclass
 
 import torch
 
-from harness import reference
 from harness.spec import load_json, load_module
 
 MAX_BATCHES = 64      # camera batches tried before giving up
@@ -21,9 +20,9 @@ MAX_BATCHES = 64      # camera batches tried before giving up
 
 @dataclass
 class Hits:
-    """Each (N, 3) float32: the hit point, the triangle's unit normal
-    turned towards the ray that found it, and that ray's direction; and
-    the seconds the reference took."""
+    """Each (N, 3) float32: the hit point, the surface's world-space unit
+    normal turned towards the ray that found it, and that ray's
+    direction; and the seconds the reference took."""
 
     point: torch.Tensor
     normal: torch.Tensor
@@ -36,7 +35,7 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def primary_hits(tris, lo, hi, base, mix: str, gen, need: int) -> Hits:
+def primary_hits(scene, base, mix: str, gen, need: int) -> Hits:
     """The first `need` hits of the camera mix traffic/<mix>.json: its
     batches in their order (batch i from the mix's rays kind, with its
     index i), each batch's hits in the batch's ray order."""
@@ -46,20 +45,15 @@ def primary_hits(tris, lo, hi, base, mix: str, gen, need: int) -> Hits:
     for i in range(MAX_BATCHES):
         if n >= need:
             break
-        o, d = kind.make(tris, lo, hi, p, gen, i)
-        _sync(tris.device)
+        o, d = kind.make(scene, p, gen, i)
+        _sync(scene.device)
         t0 = time.perf_counter()
-        t, prim = reference.closest(tris, o, d)
-        _sync(tris.device)
+        t, hit = scene.closest(o, d)
+        _sync(scene.device)
         ref_s += time.perf_counter() - t0
-        keep = torch.nonzero(prim >= 0).squeeze(1)
-        t, prim, o, d = t[keep], prim[keep], o[keep], d[keep]
-        tri = tris[prim]
-        nrm = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
-        nrm = nrm / torch.linalg.vector_norm(nrm, dim=1,
-                                             keepdim=True).clamp_min(1e-30)
-        nrm = torch.where((nrm * d).sum(1, keepdim=True) > 0.0, -nrm, nrm)
-        got.append((o + t[:, None] * d, nrm, d))
+        keep = torch.nonzero(hit >= 0).squeeze(1)
+        t, hit, o, d = t[keep], hit[keep], o[keep], d[keep]
+        got.append((o + t[:, None] * d, scene.normals(hit, d), d))
         n += keep.numel()
     if n < need:
         raise ValueError(f"{MAX_BATCHES} batches of {mix!r} hit the scene "

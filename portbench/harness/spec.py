@@ -4,16 +4,34 @@
 and traffic mix, and each metric. Each part is a file of its own under
 the benchmark's folder, found by that name:
 
-    configs/<config>.json     the scene and how it is built
+    configs/<config>.json     the scene's kind ("scene"), its sizes and
+                              how the program's object is built
+    scenes/<scene>.py         a kind of scene (`make(config, seed, device)`)
     traffic/<traffic>.json    the parameters of the ray batches
     cells/<cell>.json         the size of the output check and its limits
     rays/<kind>.py            a kind of ray batch (`make(...)`)
     calls/<call>.py           a kind of call, its reference and its numbers
     e2e/<metric>.py           an end-to-end metric (`read(window)`)
-    metrics/<metric>.py       a per-layer metric (`read(trace)`)
+    metrics/<metric>.py       a per-layer metric (`read(trace)`, or
+                              `read_window(window)` for one of the window)
 
-A later cell, mix, configuration or metric is new files and new entries,
-never an edit of a file that is there."""
+A scene kind's `make` returns the benchmark's own copy of the scene on
+the run's device, which has `device`, `lo` and `hi` (float64 corners of
+its world box), `summary` (a few words for the log) and:
+
+    program()                          the object the program is handed,
+                                       built as a user builds it (the only
+                                       part of a kind that imports the
+                                       program)
+    closest(o, d, t_max, precision)    the plain reference's (t, hit id),
+                                       t = 1e30 and id -1 on a miss; the
+                                       id's meaning is the kind's own
+    occluded(o, d, t_max, precision)   the plain reference's any hit
+    normals(hit, d)                    world-space unit normals of hits,
+                                       turned towards their rays
+
+A later cell, mix, configuration, scene or metric is new files and new
+entries, never an edit of a file that is there."""
 
 from __future__ import annotations
 
@@ -68,6 +86,13 @@ def load_cell(name: str, bench_path: Path = BENCHMARK,
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
         base=base)
+
+
+def load_scene(config: dict, seed: int, device, base: Path):
+    """The configuration's scene, of the kind scenes/<scene>.py, made
+    from the seed on `device`."""
+    return load_module(base, "scenes", config["scene"]).make(config, seed,
+                                                             device)
 
 
 def load_module(base: Path, folder: str, name: str):

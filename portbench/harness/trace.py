@@ -199,6 +199,44 @@ class Tracer:
         return build(self.prof, self.calls, self.window_us, self.naming)
 
 
+class DeviceBusy:
+    """The device's busy time over every call of an untraced window: a
+    profiler of the device alone, stopped and started again between
+    calls every STRETCH_S seconds so that no stretch outgrows the
+    profiler's buffers, and read once the window has closed. It slows
+    the host's launches, and its first start takes seconds of the
+    window; what it reads, the device's time, is not slowed. Call before() ahead of each call and finish()
+    when the window closes. The harness's own gathers of the kept
+    answers, two to four small kernels a call, are in it."""
+
+    STRETCH_S = 4.0
+
+    def __init__(self):
+        self.profs, self.prof, self.t0 = [], None, 0.0
+
+    def before(self) -> None:
+        now = time.perf_counter()
+        if self.prof is not None and now - self.t0 < self.STRETCH_S:
+            return
+        self.finish()
+        self.prof, self.t0 = start("cuda", host=False), now
+
+    def finish(self) -> None:
+        if self.prof is not None:
+            self.prof.stop()
+            self.profs.append(self.prof)
+            self.prof = None
+
+    def busy_s(self) -> float:
+        """Seconds in which a kernel, copy or memset ran, over every
+        stretch; each stretch is read once and let go."""
+        us = 0.0
+        while self.profs:
+            us += sum(e - s for s, e in
+                      merged(device_ops(events(self.profs.pop()))))
+        return us / 1e6
+
+
 def device_ops(evs):
     return [(n, s, e) for n, d, s, e, ua, _ in evs
             if d and not ua and not n.startswith("portbench.")]

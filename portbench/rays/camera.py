@@ -24,10 +24,11 @@ def count(p):
     return int(p["width"]) * int(p["height"]) * int(p["spp"])
 
 
-def make(tris, lo, hi, p, gen, index):
+def make(scene, p, gen, index):
     W, H, S, T = (int(p[k]) for k in ("width", "height", "spp", "tile"))
     if W % T or H % T:
         raise ValueError("width and height must be multiples of the tile")
+    lo, hi = scene.lo, scene.hi
     center = (lo + hi) * 0.5
     extent = float(np.max(hi - lo))
     a = math.radians(p["views_deg"][index % len(p["views_deg"])])
@@ -38,7 +39,7 @@ def make(tris, lo, hi, p, gen, index):
     fwd = _unit(center - eye)
     right = _unit(np.cross(fwd, [0.0, 1.0, 0.0]))
     up = np.cross(right, fwd)
-    dev = tris.device
+    dev = scene.device
     basis = torch.tensor(np.stack([fwd, right, up]), dtype=torch.float32,
                          device=dev)
     jit = torch.rand((S, H, W, 2), generator=gen, device=dev)

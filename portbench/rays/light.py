@@ -19,14 +19,14 @@ def count(p):
     return int(p["rays_per_call"])
 
 
-def make_pool(tris, lo, hi, p, gen, base):
+def make_pool(scene, p, gen, base):
     R, P = count(p), int(p["pool"])
-    center = (lo + hi) * 0.5
-    extent = float(np.max(hi - lo))
+    center = (scene.lo + scene.hi) * 0.5
+    extent = float(np.max(scene.hi - scene.lo))
     light = torch.tensor(
         center + np.asarray(p["light_offset"], np.float64) * extent,
-        dtype=torch.float32, device=tris.device)
-    h = primary_hits(tris, lo, hi, base, p["primary"], gen, R * P)
+        dtype=torch.float32, device=scene.device)
+    h = primary_hits(scene, base, p["primary"], gen, R * P)
     pts = h.point.view(P, R, 3)
     return (light.expand_as(pts).contiguous(), pts - light,
             h.reference_s)

@@ -39,10 +39,10 @@ def cosine_about(n, gen):
     return d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
 
 
-def make_pool(tris, lo, hi, p, gen, base):
+def make_pool(scene, p, gen, base):
     R, P = count(p), int(p["pool"])
-    extent = float(np.max(hi - lo))
-    h = primary_hits(tris, lo, hi, base, p["primary"], gen, R * P)
+    extent = float(np.max(scene.hi - scene.lo))
+    h = primary_hits(scene, base, p["primary"], gen, R * P)
     o = h.point + h.normal * (float(p["offset"]) * extent)
     d = cosine_about(h.normal, gen)
     return o.view(P, R, 3), d.view(P, R, 3), h.reference_s

@@ -53,6 +53,25 @@ def test_the_reference_imports_nothing_of_the_program():
         assert not [m for m in _imports(p) if m.startswith("tinybvh")]
 
 
+def test_a_scene_kind_imports_the_program_only_to_build_its_object():
+    """The program is imported inside a kind's `program` alone: its
+    reference and its copy of the scene never reach it."""
+    kinds = sorted([*(BASE / "scenes").glob("*.py"),
+                    *(BASE / "tests" / "instanced" / "scenes").glob("*.py")])
+    assert kinds
+    for p in kinds:
+        tree = ast.parse(p.read_text())
+        inside = {id(n) for f in ast.walk(tree)
+                  if isinstance(f, ast.FunctionDef) and f.name == "program"
+                  for n in ast.walk(f)}
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                if any((m or "").startswith("tinybvh") for m in names):
+                    assert id(node) in inside, (p.name, node.lineno)
+
+
 def test_a_whole_run_loads_no_jax(tmp_path):
     """A tiny cell's whole run in a fresh interpreter, the program and
     its torch paths included: no module of JAX or the JAX package."""

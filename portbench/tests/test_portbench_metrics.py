@@ -4,6 +4,7 @@ import statistics
 
 import pytest
 
+from harness import trace as trace_mod
 from harness.cell import Window
 from harness.spec import BASE, load_module
 from harness.stats import spread
@@ -24,8 +25,68 @@ def test_mrays_is_all_the_work_over_all_the_window():
     # the whole window, not a mean or median of per-call rates
     w = Window(latencies=[0.1, 0.1, 0.8], work=3000, completed=3,
                attempted=3, seconds=1.0)
-    assert e2e("mrays").read(w) == pytest.approx(3000 / 1.0 / 1e6)
-    assert e2e("mrays").read(Window()) is None
+    assert layer("mrays_window").read_window(w) == pytest.approx(
+        3000 / 1.0 / 1e6)
+    assert layer("mrays_window").read_window(Window()) is None
+
+
+def test_device_mrays_is_all_the_work_over_the_devices_busy_time():
+    # 3,000 rays over 0.25 s of the device's time, whatever the window's
+    w = Window(latencies=[0.1, 0.1, 0.8], work=3000, completed=3,
+               attempted=3, seconds=1.0, device_busy_s=0.25)
+    assert e2e("device_mrays").read(w) == pytest.approx(3000 / 0.25 / 1e6)
+    assert e2e("device_mrays").read(Window()) is None
+
+
+def test_device_busy_restarts_between_calls_and_sums_every_stretch(
+        monkeypatch):
+    # each stretch's profiler records two overlapping ops and one apart:
+    # 0-3 us and 2-5 us merge to 5 us, 10-11 us adds 1 us
+    class Ev:
+        def __init__(self, s, e):
+            self.s, self.e = s, e
+
+        def device_type(self):
+            return "DeviceType.CUDA"
+
+        def start_ns(self):
+            return self.s * 1000
+
+        def duration_ns(self):
+            return (self.e - self.s) * 1000
+
+        def name(self):
+            return "k"
+
+        def is_user_annotation(self):
+            return False
+
+        def start_thread_id(self):
+            return 0
+
+    class Prof:
+        stopped = 0
+
+        def __init__(self):
+            evs = [Ev(0, 3), Ev(2, 5), Ev(10, 11)]
+            self.profiler = type("P", (), {"kineto_results": type(
+                "R", (), {"events": staticmethod(lambda: evs)})()})()
+
+        def stop(self):
+            Prof.stopped += 1
+
+    started = []
+    monkeypatch.setattr(trace_mod, "start",
+                        lambda dev, host: started.append(host) or Prof())
+    clock = iter([0.0, 1.0, 5.0, 5.5, 9.2])
+    monkeypatch.setattr(trace_mod.time, "perf_counter", lambda: next(clock))
+    busy = trace_mod.DeviceBusy()
+    for _ in range(5):          # stretches begin at 0.0, 5.0 and 9.2 s
+        busy.before()
+    busy.finish()
+    assert started == [False] * 3 and Prof.stopped == 3
+    assert busy.busy_s() == pytest.approx(3 * 6e-6)
+    assert busy.busy_s() == 0.0     # each stretch is read once
 
 
 def test_setup_s_is_the_windows_setup():

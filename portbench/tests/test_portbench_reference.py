@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from harness import reference
-from harness.scene import minimal_soup
+from harness.spec import load_module
 
 from portbench_tiny import BASE, ROOT
 
@@ -50,7 +50,8 @@ def test_occluded_by_hand(precision):
 
 
 def _soup_rays(n_tris=2000, n_rays=3000, seed=4):
-    tris = torch.from_numpy(minimal_soup(n_tris, seed, 1.5))
+    tris = torch.from_numpy(load_module(BASE, "scenes", "minimal_soup")
+                            .minimal_soup(n_tris, seed, 1.5))
     g = torch.Generator().manual_seed(seed)
     o = torch.rand((n_rays, 3), generator=g) * 1.5
     d = torch.nn.functional.normalize(torch.randn((n_rays, 3), generator=g),
@@ -92,14 +93,33 @@ def test_the_control_reads_apart_from_the_reference():
     assert float(((tc - t).abs() / t)[same].max()) > 1e-4
 
 
+_LOADS = """
+import sys; sys.path[:0] = [sys.argv[1]]
+import torch
+from harness import reference, hits
+from harness.spec import BASE, load_json, load_scene
+tris = torch.rand(8, 3, 3); o = torch.rand(4, 3)
+reference.closest(tris, o, o + 1.0); reference.occluded(tris, o, o + 1.0, 0.5)
+configs = [load_json(p) for p in sorted((BASE / "configs").glob("*.json"))]
+for kind in sorted(p.stem for p in (BASE / "scenes").glob("*.py")):
+    s = load_scene(next(c for c in configs if c["scene"] == kind), 3, "cpu",
+                   BASE)
+    c = torch.tensor((s.lo + s.hi) / 2, dtype=torch.float32)
+    g = torch.Generator().manual_seed(3)
+    o = c + torch.randn((64, 3), generator=g) * float(max(s.hi - s.lo))
+    t, hit = s.closest(o, c - o)
+    assert (hit >= 0).any(), kind
+    s.occluded(o, c - o, 0.999)
+    s.normals(hit[hit >= 0], (c - o)[hit >= 0])
+print(sorted({m.split('.')[0] for m in sys.modules}))
+"""
+
+
 def test_the_reference_loads_nothing_of_the_program():
-    code = ("import sys; sys.path[:0] = [sys.argv[1]]; "
-            "from harness import reference, hits, scene; "
-            "import torch; tris = torch.rand(8, 3, 3); o = torch.rand(4, 3); "
-            "reference.closest(tris, o, o + 1.0); "
-            "reference.occluded(tris, o, o + 1.0, 0.5); "
-            "print(sorted({m.split('.')[0] for m in sys.modules}))")
-    out = subprocess.run([sys.executable, "-c", code, str(BASE)],
+    """harness/reference.py and hits.py, and the plain reference of every
+    scene kind (closest, occluded, normals) on a configuration that
+    names it: no module of the program or of JAX is loaded."""
+    out = subprocess.run([sys.executable, "-c", _LOADS, str(BASE)],
                          capture_output=True, text=True, check=True,
                          cwd=ROOT).stdout
     tops = eval(out.strip().splitlines()[-1])

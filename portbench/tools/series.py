@@ -84,7 +84,8 @@ def main(argv=None):
         for n in names:
             xs = [m[n] for m in ms if n in m]
             summary[n] = {"median": statistics.median(xs),
-                          "spread": spread(xs) if len(xs) > 1 else None,
+                          "spread": (spread(xs) if len(xs) > 1
+                                     and statistics.median(xs) else None),
                           "n": len(xs)}
         print(json.dumps({"workload": w, "summary": summary}), flush=True)
 
