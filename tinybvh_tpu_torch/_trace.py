@@ -1,5 +1,5 @@
-"""Spans and counters of the packet path, and the tables of kernel
-launches.
+"""Spans and counters of the packet path and of the TLAS path, and the
+tables of kernel launches.
 
 The traced path: `api.py::BVH.intersect` / `is_occluded` ->
 `_packet_trace` -> `traverse/packet2.py` -> `traverse/retrace.py`, whose
@@ -40,13 +40,49 @@ Each traced API call appends one record (a dict) to `RECORDS`:
               frontier before the cap clips it, and that cap in pairs
               (cap_factor, wf_cap_factor on the packet path, x rays)
 
+The TLAS path: `api.py::TLAS.intersect` / `is_occluded` ->
+`tlas/instance.py`, plain torch: the two-level wavefront at a frontier
+of 4, then 12 pairs a ray (its answers thrown away where the frontier
+overflowed), then the per-ray-stack lockstep. Spans, nested:
+
+    tbvh.tlas_intersect / tbvh.tlas_is_occluded   the API call
+      tbvh.tlas_wavefront   one capped wavefront pass
+      tbvh.tlas_lockstep    the lockstep
+
+Its records hold `api` ("tlas_intersect" or "tlas_is_occluded"),
+`stamp_ns` and `span` as above, and:
+
+    rays      rays of the call
+    passes    passes run (wavefront and lockstep)
+    discarded of them, passes whose answers were thrown away
+    syncs     host syncs the TLAS code makes: a wavefront level's
+              `nonzero`, a lockstep check of its rays' end
+    visits    node and leaf visits, TLAS and BLAS, of the pass that
+              answered: the wavefront's pairs summed over its levels
+              (each a node whose children or a leaf whose triangles the
+              level tests), the lockstep's nodes and leaves taken
+    discarded_visits  the same of the passes thrown away
+    entries   instance entries (a ray moved into an instance's frame)
+              of the pass that answered
+
+`syncs`, `passes`, `discarded` and the wavefront's visits are host
+integers the code holds anyway. `entries`, and the lockstep's visits,
+are 0-dim device tensors, left in the record as they are, so that
+recording them waits for nothing: a reader turns them into numbers
+once its calls are over. To count them, under a profiler alone, the
+lockstep adds each step's nodes, leaves and entries to two per-ray
+int32 tensors (three elementwise launches a step) and the wavefront
+keeps a reference to each level's frontier; each pass that answers sums
+them once.
+
 Without a profiler no record is kept, and neither spans nor counters
 add a host sync, an allocation or a launch. With one, neither adds a
 sync or a launch: the counters are host integers the traced code holds
 anyway (packet2.py::_any_overflow counts the tile mask it copies to the
 host in either case), or a device's counters that the code copies to the
 host asynchronously in either case, read when the call returns
-(`note_later`).
+(`note_later`). The TLAS path's device counts, above, are the one
+exception to "no launch".
 
 `LAUNCHES` maps a module's name to its table of kernel launches (the
 module's own `LAUNCHES`, registered by `launch_table`), which
@@ -140,7 +176,9 @@ def _profiling() -> bool:
 
 
 def api_call(api: str):
-    """Decorate the API method `api` (BVH.intersect, BVH.is_occluded):
+    """Decorate the API method `api` (BVH.intersect, BVH.is_occluded,
+    TLAS.intersect as "tlas_intersect", TLAS.is_occluded as
+    "tlas_is_occluded"):
     while a torch profiler runs (checked here, once a call) the call gets
     its span tbvh.<api> and its record; a call inside a traced call adds
     neither."""

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tinybvh_tpu_torch._trace import api_call
+from tinybvh_tpu_torch._trace import api_call, note, span
 from tinybvh_tpu_torch.core.rays import Hits, Rays, default_device, make_rays
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR
 
@@ -464,6 +464,7 @@ class TLAS:
             device=raw[0].bounds.device)
         self.blases = blases
 
+    @api_call("tlas_intersect")
     def intersect(self, rays: Rays, t_max=BVH_FAR) -> Hits:
         """Closest hit (.inst the instance, .prim the BLAS-local prim):
         the two-level wavefront at 4, then 12 pairs per ray; where both
@@ -472,16 +473,27 @@ class TLAS:
             intersect_tlas8, intersect_tlas_wavefront,
         )
 
+        _note_tlas_call(rays)
         for cap in (4, 12):
-            hits, overflow = intersect_tlas_wavefront(self._impl, rays, t_max,
-                                                      cap_factor=cap)
+            with span("tlas_wavefront"):
+                hits, overflow = intersect_tlas_wavefront(
+                    self._impl, rays, t_max, cap_factor=cap)
             if not overflow:
                 return hits
-        return intersect_tlas8(self._impl, rays, t_max)
+        with span("tlas_lockstep"):
+            return intersect_tlas8(self._impl, rays, t_max)
 
+    @api_call("tlas_is_occluded")
     def is_occluded(self, rays: Rays, t_max) -> torch.Tensor:
         """(R,) bool: any hit in (0, t_max) (tlas.instance.
         is_occluded_tlas8)."""
         from tinybvh_tpu_torch.tlas.instance import is_occluded_tlas8
 
+        _note_tlas_call(rays)
         return is_occluded_tlas8(self._impl, rays, t_max)
+
+
+def _note_tlas_call(rays: Rays) -> None:
+    """The counters a traced TLAS call starts from (_trace.py)."""
+    note(rays=int(rays.o.shape[0]), passes=0, discarded=0, syncs=0,
+         discarded_visits=0)

@@ -23,7 +23,9 @@ Ray transforms are explicit f32 multiply-sums (core.vecmath.mat3_apply),
 never a matmul. Two engines, both plain torch (the JAX package has no
 kernel here): the per-ray-stack lockstep `intersect_tlas8`, and the
 two-level wavefront `intersect_tlas_wavefront`, whose frontier holds only
-live pairs, as traverse/wavefront.py does."""
+live pairs, as traverse/wavefront.py does. Inside a traced TLAS call
+(_trace.py) each pass writes its host syncs, visits and instance
+entries into the call's record (`_tally`)."""
 
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tinybvh_tpu_torch import _trace
 from tinybvh_tpu_torch.core.intersect import moller_trumbore, tri_edges
 from tinybvh_tpu_torch.core.rays import Hits, Rays, default_device
 from tinybvh_tpu_torch.core.vecmath import BVH_FAR, mat3_apply, safe_rcp
@@ -288,6 +291,26 @@ def _xform(rows, o, d):
     return mat3_apply(a, o) + rows[:, 9:], mat3_apply(a, d)
 
 
+def _tally(syncs: int, visits, entries=None, overflow: bool = False):
+    """One finished pass into the traced TLAS call's record (_trace.py);
+    nothing outside a traced call. A pass that overflowed is thrown away
+    by its caller, so its visits (a host int) go to discarded_visits.
+    Else visits (a host int or a 0-dim device count) and entries (a 0-dim
+    device count) are the call's, kept as they are: no copy, no sync."""
+    rec = _trace.record()
+    if rec is None:
+        return
+    counts = {"passes": rec.get("passes", 0) + 1,
+              "syncs": rec.get("syncs", 0) + syncs}
+    if overflow:
+        counts.update(discarded=rec.get("discarded", 0) + 1,
+                      discarded_visits=rec.get("discarded_visits", 0)
+                      + visits)
+    else:
+        counts.update(visits=visits, entries=entries)
+    _trace.note(**counts)
+
+
 def intersect_tlas8(tlas: TLAS8, rays: Rays, t_max=BVH_FAR,
                     with_steps: bool = False):
     """Closest-hit two-level traversal with a per-ray stack (STACK_DEPTH
@@ -324,6 +347,10 @@ def intersect_tlas8(tlas: TLAS8, rays: Rays, t_max=BVH_FAR,
     prim = torch.full((R,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
     done = torch.zeros(R, dtype=torch.bool, device=dev)
+    traced = _trace.record() is not None
+    if traced:        # per ray: nodes and leaves taken, instances entered
+        n_visit = torch.zeros(R, dtype=torch.int32, device=dev)
+        n_enter = torch.zeros(R, dtype=torch.int32, device=dev)
 
     def to_frame(f):
         """Rays in frame f (-1: the world, i.e. the identity row)."""
@@ -398,7 +425,13 @@ def intersect_tlas8(tlas: TLAS8, rays: Rays, t_max=BVH_FAR,
         frame = torch.where(enter, iid.to(torch.int32), frame)
         cur = torch.where(is_node, next_node,
                           torch.where(enter, tlas.inst_root[iid], _EMPTY))
+        if traced:
+            n_visit += is_node
+            n_visit += is_leaf
+            n_enter += enter
 
+    if traced:        # a check of the end at step 0 and every _CHECK_EVERY
+        _tally(step // _CHECK_EVERY + 1, n_visit.sum(), n_enter.sum())
     ok = prim >= 0
     hits = Hits(t=torch.where(ok, t, BVH_FAR), u=u, v=v, prim=prim,
                 inst=inst)
@@ -411,11 +444,13 @@ def is_occluded_tlas8(tlas: TLAS8, rays: Rays, t_max, cap_factor: int = 4):
     cap_factor and then 3 * cap_factor pairs per ray; on a second
     overflow the exact lockstep traversal."""
     for cap in (cap_factor, 3 * cap_factor):
-        _, occ, overflow = intersect_tlas_wavefront(
-            tlas, rays, t_max, cap_factor=cap, any_hit=True)
+        with _trace.span("tlas_wavefront"):
+            _, occ, overflow = intersect_tlas_wavefront(
+                tlas, rays, t_max, cap_factor=cap, any_hit=True)
         if not overflow:
             return occ
-    return intersect_tlas8(tlas, rays, t_max).prim >= 0
+    with _trace.span("tlas_lockstep"):
+        return intersect_tlas8(tlas, rays, t_max).prim >= 0
 
 
 def intersect_tlas_wavefront(tlas: TLAS8, rays: Rays, t_max=BVH_FAR,
@@ -459,7 +494,12 @@ def intersect_tlas_wavefront(tlas: TLAS8, rays: Rays, t_max=BVH_FAR,
     pf = torch.full((R,), n_inst, dtype=torch.int32, device=dev)
     pt = torch.zeros(R, dtype=torch.float32, device=dev)     # entry t
     n_pairs, level, overflow = R, 0, False
+    traced = _trace.record() is not None
+    visits, frontiers = 0, []      # traced: each level's pairs and codes
     while n_pairs > 0 and level < MAX_LEVELS:
+        if traced:
+            visits += n_pairs
+            frontiers.append(pc)
         tb = tkey.view(torch.float32)[pr]
         active = pt < tb
         if any_hit:
@@ -524,6 +564,15 @@ def intersect_tlas_wavefront(tlas: TLAS8, rays: Rays, t_max=BVH_FAR,
         level += 1
     # stopping at MAX_LEVELS with pairs pending is silent truncation
     overflow = overflow or n_pairs > 0
+    if traced:
+        entries = None
+        if not overflow:    # a pair at a BLAS root is an instance entry
+            root = torch.zeros(tlas.bounds.shape[0], dtype=torch.bool,
+                               device=dev)
+            root[tlas.inst_root.long()] = True
+            entries = root[torch.cat(frontiers).clamp_min(0).long()].sum()
+        del frontiers
+        _tally(level, visits, entries, overflow)
 
     ok = win != _I32MAX
     wl = torch.where(ok, win >> 2, 0).long()
